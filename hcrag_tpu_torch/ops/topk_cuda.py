@@ -1,0 +1,304 @@
+"""Fused int8 cosine + top-k over the index, with its two CUDA kernels.
+
+Counterpart of `pallas_cosine_top_k_int8` and `_merge_tile_candidates`
+(hcrag_tpu/ops/topk_pallas.py) in the packed int8 mode the query step runs:
+
+  * `int8_tile_topk` (kernel B1, csrc/int8_tile_topk.cu) — int8 dots,
+    rescale, mask and the exact top-k of every index tile under the packed
+    (score | lane) key;
+  * `packed_candidate_merge` (kernel B2, csrc/packed_candidate_merge.cu) —
+    the top out_k of B1's candidate pool under the packed
+    (value | slot-major position) key.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+plain PyTorch version, defined beside it, for CPU tensors.  Each counts its
+launches in a plain integer attribute, `<wrapper>.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from hcrag_tpu_torch.ops import _build
+from hcrag_tpu_torch.ops.quantize import quantize_queries
+from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
+
+NEG_INF = -1e30
+LANE_MASK = 0x7FF  # the 11 low bits of a packed key hold 2047 - lane
+MAX_TILE_K = 128
+PACKED_MERGE_MIN_POOL = 2 * 2048  # smaller pools take the stable sort
+_INT32_MIN = -(2**31)
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "int8_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
+    "packed_candidate_merge": (_VP,) * 4 + (_I,) * 4 + (_VP,),
+}
+
+
+def _kernel(name: str):
+    fn = getattr(_build.load(name), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_exact_matmul() -> None:
+    # The plain versions take int8 dots as float32 matrix products of
+    # integer values: exact (|dot| <= 127^2 * 384 < 2^24) only in full f32.
+    if (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "plain int8 dots need full-precision float32 matmuls: "
+            "TF32 / reduced float32 matmul precision is enabled"
+        )
+
+
+def _require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} must be a CUDA or CPU tensor, got {t.device}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
+        )
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1: per-tile top-k
+# ---------------------------------------------------------------------------
+def int8_tile_topk_plain(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B1 (same contract, same bits).
+
+    q8 [B, D] int8, q_scale [B] f32, e8 [N, D] int8, e_scale [N] f32,
+    mask [N] bool -> (vals [B, tiles, k] f32, idx [B, tiles, k] int32), the
+    exact top-k of every `tile_n`-row tile under the packed key; fillers
+    (-1e30, -1).  Queries go in chunks that keep the [chunk, N] score
+    buffers near 2 GiB."""
+    _check_exact_matmul()
+    b = q8.shape[0]
+    n = e8.shape[0]
+    dev = q8.device
+    tiles = -(-n // tile_n)
+    pad = tiles * tile_n - n
+    offs = torch.where(
+        mask,
+        torch.tensor(2.0, device=dev),
+        torch.tensor(-3.0, device=dev),
+    )
+    lane = (
+        2047 - torch.arange(tile_n, dtype=torch.int32, device=dev)
+    ).repeat(tiles)
+    base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
+    e_f = e8.to(torch.float32)
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    chunk = max(1, (1 << 29) // (tiles * tile_n))
+    for lo in range(0, b, chunk):
+        hi = min(b, lo + chunk)
+        s = q8[lo:hi].to(torch.float32) @ e_f.T  # exact integer dots
+        s = s * q_scale[lo:hi, None]
+        s = s * e_scale[None, :]
+        s = s + offs[None, :]
+        bits = s.view(torch.int32) & ~LANE_MASK
+        if pad:
+            bits = torch.nn.functional.pad(bits, (0, pad), value=_INT32_MIN)
+        keys = (bits | lane).view(hi - lo, tiles, tile_n)
+        top = keys.topk(k, dim=2).values  # keys are unique within a tile
+        valid = top > 0
+        val = (top & ~LANE_MASK).view(torch.float32) - 2.0
+        idx = 2047 - (top & LANE_MASK) + base
+        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
+        out_i[lo:hi] = torch.where(valid, idx, -1)
+    return out_v, out_i
+
+
+def int8_tile_topk(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 for CUDA tensors, its plain version for CPU tensors (see
+    `int8_tile_topk_plain` for the contract)."""
+    if q8.device.type == "cpu":
+        return int8_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, tile_n)
+    _require_cuda(q8, "q8")
+    b, d = q8.shape
+    n = e8.shape[0]
+    dev = q8.device
+    _check(q8, "q8", torch.int8, (b, d), dev)
+    _check(q_scale, "q_scale", torch.float32, (b,), dev)
+    _check(e8, "e8", torch.int8, (n, d), dev)
+    _check(e_scale, "e_scale", torch.float32, (n,), dev)
+    _check(mask, "mask", torch.bool, (n,), dev)
+    if b == 0 or n == 0:
+        raise ValueError("int8_tile_topk needs at least one query and one row")
+    if d % 16 or q8.data_ptr() % 16 or e8.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte multiples on 16-byte boundaries")
+    if tile_n % 64 or not 64 <= tile_n <= 2048:
+        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
+    if not 1 <= k <= min(MAX_TILE_K, tile_n):
+        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+    tiles = -(-n // tile_n)
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    err = _kernel("int8_tile_topk")(
+        q8.data_ptr(), q_scale.data_ptr(), e8.data_ptr(), e_scale.data_ptr(),
+        mask.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        b, n, d, k, tile_n, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"int8_tile_topk launch failed: CUDA error {err}")
+    int8_tile_topk.launches += 1
+    return out_v, out_i
+
+
+int8_tile_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2: candidate merge
+# ---------------------------------------------------------------------------
+def packed_candidate_merge_plain(
+    v: torch.Tensor, i: torch.Tensor, out_k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B2 (same contract, same bits).
+
+    v, i [b, tiles, k] (B1's tile-major candidates) -> (out_v [b, out_k]
+    f32, out_i [b, out_k] int32): ordered by the quantized key
+    bits(v + 2) & ~0x7FF, descending, ties to the lowest slot-major
+    position slot * tiles + tile; values decode from the key, fillers
+    (-1e30, -1)."""
+    b, tiles, k = v.shape
+    key = ((v + 2.0).view(torch.int32) & ~LANE_MASK).to(torch.int64)
+    rank = (
+        torch.arange(k, dtype=torch.int64, device=v.device)[None, :] * tiles
+        + torch.arange(tiles, dtype=torch.int64, device=v.device)[:, None]
+    )  # [tiles, k]: the slot-major position of each tile-major candidate
+    word = key * 2**32 + (2**32 - 1 - rank)  # unique: a plain max orders it
+    top = word.reshape(b, -1).topk(out_k, dim=1).values
+    hi = torch.div(top, 2**32, rounding_mode="floor")
+    r = 2**32 - 1 - (top - hi * 2**32)
+    valid = hi > 0
+    val = hi.to(torch.int32).view(torch.float32) - 2.0
+    idx = torch.gather(i.reshape(b, -1), 1, (r % tiles) * k + r // tiles)
+    return (
+        torch.where(valid, val, NEG_INF),
+        torch.where(valid, idx, -1).to(torch.int32),
+    )
+
+
+def packed_candidate_merge(
+    v: torch.Tensor, i: torch.Tensor, out_k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B2 for CUDA tensors, its plain version for CPU tensors (see
+    `packed_candidate_merge_plain` for the contract)."""
+    if v.device.type == "cpu":
+        return packed_candidate_merge_plain(v, i, out_k)
+    _require_cuda(v, "v")
+    b, tiles, k = v.shape
+    c = tiles * k
+    dev = v.device
+    _check(v, "v", torch.float32, (b, tiles, k), dev)
+    _check(i, "i", torch.int32, (b, tiles, k), dev)
+    if b == 0 or not 1 <= out_k <= c:
+        raise ValueError(f"need b >= 1 and 1 <= out_k <= {c}, got b={b}, out_k={out_k}")
+    if 8 * c > 227 * 1024:
+        raise ValueError(f"candidate pool of {c} does not fit one block's shared memory")
+    out_v = torch.empty((b, out_k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, out_k), dtype=torch.int32, device=dev)
+    err = _kernel("packed_candidate_merge")(
+        v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        b, tiles, k, out_k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"packed_candidate_merge launch failed: CUDA error {err}")
+    packed_candidate_merge.launches += 1
+    return out_v, out_i
+
+
+packed_candidate_merge.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused selection the query step calls
+# ---------------------------------------------------------------------------
+def uses_packed_merge(tiles: int, k: int, merge_k: int) -> bool:
+    """Whether the merge of `tiles` x `k` candidates goes through kernel B2:
+    pools of >= 4096 candidates with out_k <= 128."""
+    out_k = min(max(k, merge_k), tiles * k)
+    return out_k <= MAX_TILE_K and tiles * k >= PACKED_MERGE_MIN_POOL
+
+
+def merge_tile_candidates(
+    vals: torch.Tensor, idxs: torch.Tensor, merge_k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-tile merge of [B, tiles, k] per-tile candidates into the top
+    max(k, merge_k) (at most the pool).  Large pools go through kernel B2
+    (`uses_packed_merge`, ties by slot-major position); smaller pools take
+    a stable top-k over the tile-major layout (`lax.top_k`'s tie rule)."""
+    b, tiles, k = vals.shape
+    out_k = min(max(k, merge_k), tiles * k)
+    if uses_packed_merge(tiles, k, merge_k):
+        return packed_candidate_merge(vals, idxs, out_k)
+    out_v, pos = stable_top_k(vals.reshape(b, -1), out_k)
+    return out_v, torch.gather(idxs.reshape(b, -1), 1, pos)
+
+
+def tile_pick_count(top_k: int, n: int, tile_n: int, merge_k: int) -> int:
+    """Per-tile pick count: top_k, raised to ceil(merge_k / tiles) when the
+    tiles are too few for the pool to cover merge_k."""
+    k = min(top_k, n)
+    tiles = -(-n // tile_n)
+    if merge_k > k and tiles * k < merge_k:
+        k = min(MAX_TILE_K, tile_n, -(-merge_k // tiles))
+    return k
+
+
+def cosine_top_k_int8(
+    query_emb: torch.Tensor,
+    e_int8: torch.Tensor,
+    e_scale: torch.Tensor,
+    valid_mask: torch.Tensor,
+    top_k: int,
+    *,
+    tile_n: int = 2048,
+    merge_k: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8 cosine + top-k of normalized queries [B, D] over an int8
+    index [N, D] with row scales [N] and a row filter [N] bool.
+
+    The queries are quantized per row, kernel B1 keeps the exact top-k of
+    every `tile_n`-row tile, and the merge keeps the best max(top_k,
+    merge_k) of the pool.  Surplus slots are (-1e30, -1) fillers.  Values
+    carry the packed key's 2^-11 quantization; the engine's exact f32
+    rescore follows.  Returns (values [B, m] f32, indices [B, m] int32)."""
+    n = e_int8.shape[0]
+    k = tile_pick_count(top_k, n, tile_n, merge_k)
+    qi, qs = quantize_queries(query_emb.to(torch.float32))
+    vals, idxs = int8_tile_topk(
+        qi, qs, e_int8, e_scale, valid_mask, k, tile_n=tile_n
+    )
+    return merge_tile_candidates(vals, idxs, merge_k)

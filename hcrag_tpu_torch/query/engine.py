@@ -1,0 +1,486 @@
+"""QueryEngine — the batched query step in PyTorch.
+
+Counterpart of `hcrag_tpu/query/engine.py` in its int8 + f32-rescore mode
+(`quantize_int8=True`, `int8_rescore=m`, `int8_f32_rescore=True`), the
+configuration `bench.py` measures.  One call of the step runs, in order:
+
+  1. int8 cosine + exact per-tile top-k over the index (kernel B1);
+  2. the cross-tile candidate merge that keeps m (kernel B2 for large
+     pools, a stable sort for small ones);
+  3. the exact f32 rescore of those m candidates (`exact_rescore`);
+  4. the relevance metrics on the top-k rows (semantic, entity bitset
+     popcount, intent x type priority, weighted reduction);
+  5. the one-hop ELL graph expansion (`ops/expand.expand_batch_early_exit`);
+  6. scoring of the expanded nodes against the bf16 bank, and the 0.7/0.3
+     blend of relevance and similarity.
+
+Steps 1 and 2 are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
+PyTorch on the engine's device.  Its f32 dot products are elementwise
+products and sums, so no TF32 / `float32_matmul_precision` setting changes
+them (the JAX engine pins `Precision.HIGHEST`).  The other residency modes
+of the JAX engine raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from hcrag_tpu_torch import config as cfg
+from hcrag_tpu_torch.core.dense_index import DenseIndex
+from hcrag_tpu_torch.core.graph import CsrGraph
+from hcrag_tpu_torch.core.types import (
+    EXPANSION_EDGE_TYPES,
+    NUM_INTENTS,
+    NUM_NODE_TYPES,
+    PRIORITY_MATRIX,
+    REDUCE_MAX,
+    REDUCE_WEIGHTED_SUM,
+    CompositeWeights,
+    QueryIntent,
+    ScorerType,
+    node_type_id,
+    scorer_spec,
+)
+from hcrag_tpu_torch.device import resolve_device
+from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
+from hcrag_tpu_torch.ops.quantize import quantize_rows
+from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
+from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
+from hcrag_tpu_torch.ops.topk_cuda import (
+    cosine_top_k_int8,
+    tile_pick_count,
+    uses_packed_merge,
+)
+
+TILE_N = 2048  # index rows per B1 tile: the packed key's lane field is 11 bits
+
+_GRAPH_LABEL_TO_TYPE = {
+    "Product": "product",
+    "Category": "category",
+    "Document": "document",
+    "Annotation": "annotation",
+}
+
+
+@dataclasses.dataclass
+class QueryBatchResult:
+    """Outputs of a query batch as host arrays (all [B, ...])."""
+
+    top_scores: np.ndarray  # [B, k] cosine similarity
+    top_indices: np.ndarray  # [B, k] index rows
+    relevance: np.ndarray  # [B, k] relevance scores of retrieved rows
+    combined: np.ndarray  # [B, k] 0.7*rel + 0.3*sim
+    expanded_nodes: np.ndarray  # [B, max_expanded] graph node ids (-1 pad)
+    expanded_counts: np.ndarray  # [B]
+    expanded_relevance: np.ndarray  # [B, max_expanded]
+    rerank_scores: Optional[np.ndarray] = None
+
+
+def exact_rescore(
+    q_emb: torch.Tensor,
+    v: torch.Tensor,
+    i: torch.Tensor,
+    rows_fn: Callable[[torch.Tensor], torch.Tensor],
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank the oversampled candidates (v, i) [B, m] by exact f32 dots
+    with `rows_fn(i)` and keep top_k (stable ties).  Fillers (idx -1) and
+    filtered rows (value -1e30) never win."""
+    valid = (i >= 0) & (v > -1e29)
+    rows = rows_fn(torch.where(valid, i, 0).to(torch.int64)).to(torch.float32)
+    exact = (rows * q_emb.to(torch.float32)[:, None, :]).sum(dim=-1)
+    exact = torch.where(valid, exact, -1e30)
+    sv, sp = stable_top_k(exact, top_k)
+    return sv, torch.gather(i, 1, sp)
+
+
+class QueryEngine:
+    """Single-device query engine over a DenseIndex (+ optional CsrGraph)."""
+
+    def __init__(
+        self,
+        index: DenseIndex,
+        graph: Optional[CsrGraph] = None,
+        *,
+        ell_max_degree: Optional[int] = None,
+        device: Optional[Union[str, torch.device]] = None,
+        quantize_int8: bool = False,
+        int8_only: bool = False,
+        int8_residual: bool = False,
+        int8_rescore: int = 0,
+        int8_f32_rescore: bool = False,
+        pallas_super: int = 0,
+        select_lane_t: int = 0,
+    ):
+        if not quantize_int8:
+            raise NotImplementedError(
+                "float selection banks need kernels B4/B5 (ROADMAP.md B4, B5)"
+            )
+        if int8_only or int8_residual or int8_rescore <= 0:
+            raise NotImplementedError(
+                "int8-only and int8-residual modes need the k-pass kernel "
+                "B3 (ROADMAP.md B3)"
+            )
+        if not int8_f32_rescore:
+            raise NotImplementedError(
+                "the bf16 rescore source of the int8 mode is not ported yet "
+                "(ROADMAP.md A6c)"
+            )
+        if pallas_super > 1:
+            raise NotImplementedError(
+                "supertile selection needs kernel B7 (ROADMAP.md B7)"
+            )
+        if select_lane_t not in (0, 1):
+            raise ValueError(
+                "select_lane_t must be 0 or 1: kernel B1 selects every tile "
+                f"exactly, so no per-lane depth applies (got {select_lane_t})"
+            )
+        if np.asarray(index.emb).dtype != np.float32:
+            raise NotImplementedError(
+                "the f32 rescore bank needs a float32 index (ROADMAP.md A6c)"
+            )
+        self.device = resolve_device(device)
+        self.index = index
+        self.graph = graph
+        self.int8_rescore = int(int8_rescore)
+
+        put = self._put
+        self._n_rows = np.asarray(index.emb).shape[0]
+        self._init_emb_banks(self._padded_host_emb())
+        self.d_type_ids = put(index.type_ids.astype(np.int32))
+        self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
+        self.d_counts = put(index.entity_counts.astype(np.int32))
+        self.d_graph_ids = put(index.graph_ids.astype(np.int32))
+        self.d_priority = put(PRIORITY_MATRIX)
+
+        if graph is not None:
+            # One hop only: the JAX engine's second-hop (ANNOTATION) table
+            # comes with depth >= 2 (ROADMAP.md A5).
+            if graph.edge_type_vocab is None:
+                ell = graph.to_ell(EXPANSION_EDGE_TYPES, max_degree=ell_max_degree)
+            else:
+                ell = graph.to_ell(max_degree=ell_max_degree)
+            self.d_neighbors = put(ell.neighbors)
+            g_types = np.array(
+                [
+                    node_type_id(_GRAPH_LABEL_TO_TYPE.get(lbl, "unknown"))
+                    for lbl in graph.node_labels
+                ],
+                dtype=np.int32,
+            )
+            self.d_g_type_ids = put(g_types)
+            self.d_g_row = put(graph.node_to_row.astype(np.int32))
+        else:
+            self.d_neighbors = None
+            self.d_g_type_ids = None
+            self.d_g_row = None
+
+    # ------------------------------------------------------------------
+    # Banks
+    # ------------------------------------------------------------------
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _padded_host_emb(self) -> np.ndarray:
+        """The host index padded with zero rows to a whole number of tiles;
+        pad rows are masked out of every selection."""
+        emb_host = np.asarray(self.index.emb)
+        mult = TILE_N
+        if emb_host.shape[0] % mult:
+            pad = mult - emb_host.shape[0] % mult
+            emb_host = np.pad(emb_host, ((0, pad), (0, 0)))
+        return emb_host
+
+    def _init_emb_banks(self, emb_host: np.ndarray) -> None:
+        """The int8 selection bank and its row scales, the bf16 bank for
+        expanded-node scoring, and the f32 rescore bank."""
+        q8, scale = quantize_rows(emb_host)
+        self.d_emb_int8 = self._put(q8)
+        self.d_emb_scale = self._put(scale)
+        emb_f32 = self._put(emb_host)
+        self.d_emb = emb_f32.to(torch.bfloat16)
+        self.d_emb_f32 = emb_f32
+
+    def _bank(self) -> Dict[str, torch.Tensor]:
+        """The device tensors of the index and graph, under the keys of the
+        JAX engine's `_bank()` (see `convert.bank_from_numpy`)."""
+        bank = {
+            "type_ids": self.d_type_ids,
+            "bits": self.d_bits,
+            "counts": self.d_counts,
+            "graph_ids": self.d_graph_ids,
+            "emb": self.d_emb,
+            "emb_f32": self.d_emb_f32,
+            "emb_int8": self.d_emb_int8,
+            "emb_scale": self.d_emb_scale,
+        }
+        if self.d_neighbors is not None:
+            bank["neighbors"] = self.d_neighbors
+            bank["g_type_ids"] = self.d_g_type_ids
+            bank["g_row"] = self.d_g_row
+        return bank
+
+    def _gather_emb_rows(self, indices: torch.Tensor, bank) -> torch.Tensor:
+        """bf16 embedding rows at arbitrary indices ([..., D])."""
+        return bank["emb"][indices]
+
+    # ------------------------------------------------------------------
+    # Selection
+    # ------------------------------------------------------------------
+    def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
+        """Kernel B1 + merge over the bank: (values [B, m], row indices
+        [B, m]) with m = max(top_k, fetch_k) candidates, fillers (-1e30, -1)
+        beyond the pool; no rescore here."""
+        m = max(top_k, fetch_k)
+        merge_k = m if m > top_k else 0
+        e8 = bank["emb_int8"]
+        pad = e8.shape[0] - type_mask.shape[0]
+        if pad:
+            type_mask = torch.cat(
+                [type_mask, torch.zeros(pad, dtype=torch.bool, device=type_mask.device)]
+            )
+        return cosine_top_k_int8(
+            q_emb, e8, bank["emb_scale"], type_mask, top_k,
+            tile_n=TILE_N, merge_k=merge_k,
+        )
+
+    def _topk_impl(self, q_emb, type_mask, top_k: int, bank):
+        """Selection of the m = int8_rescore best candidates, then their
+        exact f32 rescore down to top_k."""
+        m = self.int8_rescore
+        v, i = self._local_select(q_emb, bank, type_mask, top_k, max(top_k, m))
+        return exact_rescore(
+            q_emb, v, i, lambda ix: bank["emb_f32"][ix], top_k
+        )
+
+    def resolved_kernel_config(self, batch: int, top_k: int = 10) -> Dict:
+        """The selection strategy a `query_batch` of this shape runs.
+        `tile_k` is the per-tile pick count the kernel is launched with
+        (after the small-pool raise); `lane_t` is 0 because every tile is
+        selected exactly."""
+        m = self.int8_rescore
+        merge_k = m if m > top_k else 0
+        n_bank = int(self.d_emb_int8.shape[0])
+        tiles = -(-n_bank // TILE_N)
+        tile_k = tile_pick_count(top_k, n_bank, TILE_N, merge_k)
+        packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
+        on_card = self.device.type == "cuda"
+        return {
+            "quantize_int8": True,
+            "int8_only": False,
+            "int8_residual": False,
+            "rescore_oversample": m,
+            "merge_k": merge_k,
+            "kernel": "int8_tile_topk" if on_card else "int8_tile_topk_plain",
+            "merge": (
+                ("packed_candidate_merge" if on_card else "packed_candidate_merge_plain")
+                if packed_merge else "stable_sort"
+            ),
+            "packed_select": True,
+            "two_level": False,
+            "tile_n": TILE_N,
+            "tile_k": tile_k,
+            "sub_batch": batch,
+            "super_tiles": 1,
+            "lane_t": 0,
+            "select_bank": "int8",
+            "rescore_bank": "f32",
+            "device": str(self.device),
+        }
+
+    # ------------------------------------------------------------------
+    # The step
+    # ------------------------------------------------------------------
+    def _build_step(self, top_k: int, depth: int, max_expanded: int, reduction: int):
+        has_graph = self.d_neighbors is not None
+        priority = self.d_priority
+
+        def metrics_reduce(sem, llm, ent, typ, weights, intent_ids, tids):
+            metrics = torch.stack([sem, llm, ent, typ], dim=-1)
+            if reduction == REDUCE_MAX:
+                return metrics.amax(dim=-1)
+            if weights.ndim == 3:
+                # Dynamic per-(intent, node-type) weights [4, I, T].
+                return combine_metrics_dynamic(
+                    metrics, weights, intent_ids[:, None], tids
+                )
+            return (metrics * weights).sum(dim=-1)
+
+        def entity_match(q_bits, q_count, bits, counts):
+            inter = popcount_words(q_bits[:, None, :] & bits)  # [B, k]
+            ratio = inter.to(torch.float32) / torch.clamp(
+                q_count[:, None].to(torch.float32), min=1.0
+            )
+            return torch.where(
+                (q_count == 0)[:, None],
+                torch.where(counts == 0, 0.5, 0.1),
+                ratio,
+            )
+
+        def step(q_emb, q_bits, q_oov, intent_ids, weights, type_mask,
+                 llm_topk, bank):
+            # q_emb [B, D] normalized, q_bits [B, W] int32 words, q_oov [B],
+            # intent_ids [B], weights [4] or [4, I, T], type_mask [N] bool,
+            # llm_topk [B, k] host LLM-judge column (zeros if absent).
+            type_ids = bank["type_ids"]
+            bits = bank["bits"]
+            counts = bank["counts"]
+            top_v, top_i = self._topk_impl(q_emb, type_mask, top_k, bank)
+
+            # --- relevance metrics on retrieved rows --------------------
+            # A filler index (-1) reads the last row, as the JAX step's
+            # gather does (negative indices wrap there).
+            n = type_ids.shape[0]
+            gi = top_i.to(torch.int64)
+            gi = torch.where(gi < 0, gi + n, gi)
+            sem = (top_v + 1.0) * 0.5
+            q_count = popcount_words(q_bits) + q_oov  # [B]
+            ent = entity_match(q_bits, q_count, bits[gi], counts[gi])
+            row_tids = type_ids[gi]
+            typ = priority[intent_ids[:, None], row_tids]
+            rel = metrics_reduce(
+                sem, llm_topk, ent, typ, weights, intent_ids, row_tids
+            )
+            combined = (
+                cfg.COMBINED_RELEVANCE_WEIGHT * rel
+                + cfg.COMBINED_SIMILARITY_WEIGHT * top_v
+            )
+
+            b = q_emb.shape[0]
+            if not has_graph:
+                return (
+                    top_v, top_i, rel, combined,
+                    torch.full((b, max_expanded), -1, dtype=torch.int32,
+                               device=q_emb.device),
+                    torch.zeros((b,), dtype=torch.int32, device=q_emb.device),
+                    torch.zeros((b, max_expanded), device=q_emb.device),
+                )
+
+            # --- expansion -----------------------------------------------
+            seeds = torch.where(top_v >= -1.0, bank["graph_ids"][gi], -1)
+            expanded, exp_count = expand_batch_early_exit(
+                bank["neighbors"], seeds, depth=depth, max_nodes=max_expanded
+            )
+
+            # --- expanded-node scoring -----------------------------------
+            valid = expanded >= 0
+            safe_nodes = torch.where(valid, expanded, 0).to(torch.int64)
+            rows = bank["g_row"][safe_nodes]  # [B, E]; -1 = none
+            has_row = rows >= 0
+            safe_rows = torch.where(has_row, rows, 0).to(torch.int64)
+            e_emb = (
+                self._gather_emb_rows(safe_rows, bank).to(torch.float32)
+                * has_row[..., None]
+            )
+            sem_e = (
+                (e_emb * q_emb.to(torch.float32)[:, None, :]).sum(dim=-1) + 1.0
+            ) * 0.5
+            e_bits = torch.where(has_row[..., None], bits[safe_rows], 0)
+            e_counts = torch.where(has_row, counts[safe_rows], 0)
+            ent_e = entity_match(q_bits, q_count, e_bits, e_counts)
+            e_tids = bank["g_type_ids"][safe_nodes]
+            typ_e = priority[intent_ids[:, None], e_tids]
+            rel_e = metrics_reduce(
+                sem_e, torch.zeros_like(sem_e), ent_e, typ_e, weights,
+                intent_ids, e_tids,
+            )
+            rel_e = torch.where(valid, rel_e, 0.0)
+            return top_v, top_i, rel, combined, expanded, exp_count, rel_e
+
+        return step
+
+    # ------------------------------------------------------------------
+    # Batched API
+    # ------------------------------------------------------------------
+    def query_batch_device(
+        self,
+        query_embs,
+        *,
+        top_k: int = cfg.DEFAULT_TOP_K,
+        intents: Optional[Sequence[QueryIntent]] = None,
+        entity_lists: Optional[Sequence[Sequence[str]]] = None,
+        scorer_type: ScorerType = ScorerType.COMPOSITE,
+        weights: Optional[CompositeWeights] = None,
+        expansion_depth: int = cfg.EXPANSION_DEPTH,
+        max_expanded: int = cfg.MAX_CONNECTED_NODES,
+        category_filter: Optional[str] = None,
+        llm_scores: Optional[np.ndarray] = None,
+        dynamic_weight_tensor: Optional[np.ndarray] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """Run the step and return its outputs as tensors on the engine's
+        device, without waiting for the device.
+
+        A 2-D tensor `query_embs` is taken as already normalized; anything
+        else is L2-normalized on the host.  `dynamic_weight_tensor`
+        ([4, NUM_INTENTS, NUM_NODE_TYPES]) switches the reduction to
+        per-(intent, node-type) weights."""
+        dev = self.device
+        if isinstance(query_embs, torch.Tensor) and query_embs.ndim == 2:
+            q = query_embs.to(device=dev, dtype=torch.float32)
+        else:
+            qh = np.asarray(query_embs, dtype=np.float32)
+            if qh.ndim == 1:
+                qh = qh[None, :]
+            qh = qh / np.maximum(np.linalg.norm(qh, axis=1, keepdims=True), 1e-12)
+            q = self._put(qh)
+        b = q.shape[0]
+
+        if intents is None:
+            intent_ids = torch.zeros((b,), dtype=torch.int64, device=dev)
+        else:
+            intent_ids = self._put(np.array([i.index for i in intents], dtype=np.int64))
+
+        vocab = self.index.vocab
+        qb = np.zeros((b, vocab.num_words), dtype=np.uint32)
+        qo = np.zeros(b, dtype=np.int32)
+        for i, ents in enumerate(entity_lists or ()):
+            qb[i], qo[i] = vocab.encode(ents)
+        q_bits, q_oov = self._put(qb.view(np.int32)), self._put(qo)
+
+        if category_filter:
+            type_mask = self._put(self.index.type_mask(category_filter))
+        else:
+            # Sized to the unpadded rows: the bank's pad rows stay masked.
+            type_mask = torch.ones((self._n_rows,), dtype=torch.bool, device=dev)
+
+        w, reduction = scorer_spec(scorer_type, weights)
+        if dynamic_weight_tensor is not None:
+            w = np.asarray(dynamic_weight_tensor, dtype=np.float32)
+            if w.shape != (4, NUM_INTENTS, NUM_NODE_TYPES):
+                raise ValueError(
+                    "dynamic_weight_tensor must be [4 metrics, "
+                    f"{NUM_INTENTS} intents, {NUM_NODE_TYPES} node types], "
+                    f"got {w.shape}"
+                )
+            reduction = REDUCE_WEIGHTED_SUM
+        if llm_scores is None:
+            llm_topk = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
+        else:
+            llm_topk = self._put(np.asarray(llm_scores, dtype=np.float32))
+
+        step = self._build_step(top_k, expansion_depth, max_expanded, reduction)
+        return step(
+            q, q_bits, q_oov, intent_ids, self._put(w), type_mask, llm_topk,
+            self._bank(),
+        )
+
+    def query_batch(
+        self, query_embs, *, rerank: bool = False, **kwargs
+    ) -> QueryBatchResult:
+        """`query_batch_device`, with the outputs copied to host arrays."""
+        if rerank:
+            raise NotImplementedError(
+                "the learned re-ranker is not ported yet (ROADMAP.md A12)"
+            )
+        out = self.query_batch_device(query_embs, **kwargs)
+        names = (
+            "top_scores", "top_indices", "relevance", "combined",
+            "expanded_nodes", "expanded_counts", "expanded_relevance",
+        )
+        return QueryBatchResult(
+            **{n: v.cpu().numpy() for n, v in zip(names, out)}
+        )

@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+engine on the card against the engine on the CPU.  CUDA kernels have no
+interpret mode, so these tests need an NVIDIA GPU with nvcc (sm_90a) and
+skip without one; run them there with
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hcrag_tpu_torch.ops import topk_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device("cuda")
+
+
+def _b1_inputs(b, n, d, seed, dev, tied=False):
+    from hcrag_tpu_torch.ops.quantize import quantize_queries, quantize_rows
+
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((n, d)).astype(np.float32)
+    if tied:
+        e[:] = e[0]
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    q = e[rng.integers(0, n, size=b)] if tied else rng.standard_normal((b, d))
+    q = torch.from_numpy(np.asarray(q, np.float32)).to(dev)
+    q8, qs = quantize_queries(torch.nn.functional.normalize(q, dim=1))
+    e8, es = quantize_rows(e)
+    mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    return q8, qs, torch.from_numpy(e8).to(dev), torch.from_numpy(es).to(dev), mask
+
+
+@pytest.mark.parametrize(
+    "b,n,d,k,tile",
+    [(5, 5000, 128, 10, 1024), (70, 9000, 384, 16, 2048),
+     (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)],
+)
+def test_int8_tile_topk_equals_plain(cuda, b, n, d, k, tile):
+    args = _b1_inputs(b, n, d, seed=b + k, dev=cuda)
+    kv, ki = topk_cuda.int8_tile_topk(*args, k, tile_n=tile)
+    pv, pi = topk_cuda.int8_tile_topk_plain(*args, k, tile_n=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def test_int8_tile_topk_all_tied(cuda):
+    args = _b1_inputs(8, 3000, 128, seed=1, dev=cuda, tied=True)
+    args = args[:4] + (torch.ones_like(args[4]),)
+    kv, ki = topk_cuda.int8_tile_topk(*args, 10, tile_n=1024)
+    want = torch.arange(3, device=cuda)[:, None] * 1024 + torch.arange(10, device=cuda)
+    assert torch.equal(ki, want.expand(8, 3, 10).to(torch.int32))
+
+
+@pytest.mark.parametrize(
+    "b,tiles,k,out_k", [(33, 489, 10, 32), (4, 10, 10, 100), (9, 100, 10, 7)]
+)
+def test_packed_candidate_merge_equals_plain(cuda, b, tiles, k, out_k):
+    rng = np.random.default_rng(tiles * k)
+    v = (rng.standard_normal((b, tiles, k)) * 0.1).astype(np.float32)
+    v[:, -tiles // 10:] = -1e30
+    v[0] = 0.25  # one row of ties
+    i = rng.integers(0, 1 << 20, size=(b, tiles, k)).astype(np.int32)
+    v, i = torch.from_numpy(v).to(cuda), torch.from_numpy(i).to(cuda)
+    kv, ki = topk_cuda.packed_candidate_merge(v, i, out_k)
+    pv, pi = topk_cuda.packed_candidate_merge_plain(v, i, out_k)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+FIELDS = ("top_scores", "top_indices", "relevance", "combined",
+          "expanded_nodes", "expanded_counts", "expanded_relevance")
+
+
+@pytest.fixture(scope="module")
+def small_engines(cuda):
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(20_000, 384, graph_degree=4)
+    opts = dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True,
+                ell_max_degree=8)
+    q = np.random.default_rng(0).standard_normal((64, 384)).astype(np.float32)
+    return (QueryEngine(index, graph, device=cuda, **opts),
+            QueryEngine(index, graph, device="cpu", **opts), q)
+
+
+def test_engine_on_card_equals_engine_on_cpu(small_engines):
+    gpu, cpu, q = small_engines
+    rg = gpu.query_batch(q, top_k=10)
+    rc = cpu.query_batch(q, top_k=10)
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), atol=1e-5, rtol=0)
+
+
+def test_engine_on_card_ignores_tf32(small_engines):
+    """The step takes no f32 matrix product, so enabling TF32 changes no
+    bit of its outputs."""
+    gpu, _, q = small_engines
+    want = gpu.query_batch(q, top_k=10)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = gpu.query_batch(q, top_k=10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
