@@ -1,4 +1,4 @@
-"""Retrieval constants the batched query step reads.
+"""Retrieval constants the query step and its host API read.
 
 Counterpart of the retrieval defaults in `hcrag_tpu/config.py`.
 """
@@ -6,6 +6,7 @@ Counterpart of the retrieval defaults in `hcrag_tpu/config.py`.
 from __future__ import annotations
 
 DEFAULT_TOP_K = 5
+DEFAULT_SIMILARITY_THRESHOLD = 0.3
 EXPANSION_DEPTH = 1
 MAX_CONNECTED_NODES = 20
 COMBINED_RELEVANCE_WEIGHT = 0.7

@@ -3,7 +3,8 @@
 `bank_from_numpy` turns the arrays of the JAX engine's `_bank()` (as numpy
 arrays) into tensors under the same keys, in the dtypes the port's engine
 keeps: uint32 bitsets travel as int32 words with the same bits, and
-bfloat16 rows keep their bits.
+bfloat16 rows keep their bits.  That covers the float banks (an f32 `emb`,
+or a bf16 `emb` beside an f32 `emb_f32`) as well as the int8 ones.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Core types of the engine: intents, scorer strategies, weights and the
 static tables the query step gathers from.
 
-Counterpart of `hcrag_tpu/core/types.py` (the names the batched query step
-reads).  Everything here is plain Python and numpy; the engine uploads the
+Counterpart of `hcrag_tpu/core/types.py` (the names the query step and its
+host API read).  Everything here is plain Python and numpy; the engine uploads the
 tables it needs to its device once.
 """
 
@@ -195,3 +195,13 @@ def edge_type_id(name: str) -> int:
 
 #: Relationship whitelist followed by subgraph expansion.
 EXPANSION_EDGE_TYPES = ("ANNOTATION", "DESCRIBED_BY")
+
+
+@dataclasses.dataclass
+class QueryInput:
+    """A structured query: text, embedding, entities and intent."""
+
+    text: str
+    embeddings: np.ndarray
+    entities: List[str]
+    intent: QueryIntent

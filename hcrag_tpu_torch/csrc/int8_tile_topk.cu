@@ -31,13 +31,14 @@
 // dots with 16-byte shared loads and __dp4a, write the packed keys to shared
 // memory, and then each warp filters the keys of its 8 queries against the
 // current k-th best (a warp ballot) and inserts the few survivors into that
-// query's sorted list in shared memory.  Blocks are ordered query block
-// fastest, so all query blocks of one tile run together and read the tile
-// from L2.
+// query's sorted list in shared memory (tile_select.cuh, shared with B4 and
+// B5).  Blocks are ordered query block fastest, so all query blocks of one
+// tile run together and read the tile from L2.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
+
+#include "tile_select.cuh"
 
 namespace {
 
@@ -47,38 +48,13 @@ constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 dots each
 constexpr int WARPS = THREADS / 32;
 constexpr int Q_PER_WARP = QB / WARPS;
 constexpr int KEY_STRIDE = 68;  // ints per query row of the key buffer
-constexpr int MAX_K = 128;      // 4 list slots per lane
-constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MAX_K = tile_select::MAX_K;
 
 __device__ __forceinline__ int packed_key(int dot, float qs, float es,
                                           bool valid, int lane_field) {
   float s = __fmul_rn(__fmul_rn(__int2float_rn(dot), qs), es);
   s = __fadd_rn(s, valid ? 2.0f : -3.0f);
   return (__float_as_int(s) & ~0x7FF) | lane_field;
-}
-
-// Insert key c into the descending list L[0..k) held in shared memory, if it
-// beats the last entry.  Called by a whole warp with the same c; lane l
-// updates slots l, l + 32, l + 64, l + 96.
-__device__ __forceinline__ void insert_key(int* L, int k, int c, int lane) {
-  if (c <= L[k - 1]) return;  // every lane reads the same word
-  int nv[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = lane + 32 * j;
-    if (i < k) {
-      const int old = L[i];
-      const int prev = i > 0 ? L[i - 1] : INT_MAX;
-      nv[j] = old > c ? old : (prev > c ? c : prev);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = lane + 32 * j;
-    if (i < k) L[i] = nv[j];
-  }
-  __syncwarp();
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -175,24 +151,8 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
       }
     __syncthreads();
 
-    for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq) {
-      int* L = lists + qq * k;
-      const int a0 = keys[qq * KEY_STRIDE + lane];
-      const int a1 = keys[qq * KEY_STRIDE + lane + 32];
-      const int thr = L[k - 1];
-      unsigned m0 = __ballot_sync(FULL, a0 > thr);
-      unsigned m1 = __ballot_sync(FULL, a1 > thr);
-      while (m0) {
-        const int src = __ffs(m0) - 1;
-        m0 &= m0 - 1;
-        insert_key(L, k, __shfl_sync(FULL, a0, src), lane);
-      }
-      while (m1) {
-        const int src = __ffs(m1) - 1;
-        m1 &= m1 - 1;
-        insert_key(L, k, __shfl_sync(FULL, a1, src), lane);
-      }
-    }
+    for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq)
+      tile_select::merge_64(keys + qq * KEY_STRIDE, lists + qq * k, k, lane);
   }
 
   for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq) {

@@ -1,12 +1,14 @@
 """Keyword entity extraction and node-type mapping (host side).
 
 Counterpart of the part of `hcrag_tpu/ingest/entities.py` that
-`core/dense_index.py` uses.
+`core/dense_index.py` and `QueryEngine.create_query_input` use.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+from hcrag_tpu_torch.core.types import QueryIntent
 
 #: Fixed product vocabulary.
 KEYWORD_VOCAB: List[str] = [
@@ -48,3 +50,20 @@ def metadata_node_type(metadata: dict) -> str:
     if t == "json_table":
         return "specification"
     return "unknown"
+
+
+def infer_query_intent(query: str) -> QueryIntent:
+    """Keyword intent routing; product-search verbs take precedence, and
+    product search is the default."""
+    q = query.lower()
+    if any(w in q for w in ("find", "search", "show", "get", "buy")):
+        return QueryIntent.PRODUCT_SEARCH
+    if any(w in q for w in ("manual", "document", "guide", "instructions")):
+        return QueryIntent.DOCUMENT_REQUEST
+    if any(w in q for w in ("help", "support", "problem", "issue", "fix")):
+        return QueryIntent.TECHNICAL_SUPPORT
+    if any(w in q for w in ("compare", "vs", "versus", "difference")):
+        return QueryIntent.COMPARISON_REQUEST
+    if any(w in q for w in ("spec", "specification", "details", "features")):
+        return QueryIntent.SPECIFICATION_INQUIRY
+    return QueryIntent.PRODUCT_SEARCH

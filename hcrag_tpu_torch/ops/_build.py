@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `_kernels_build/lib<name>-<hash>.so` inside the package (a directory the
 repository's `.gitignore` lists), at first use, for `sm_90a`.  The hash
-covers the source and the flags, so an edited source is never served a
-stale library.  Several sources build in parallel: one nvcc process each.
+covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source or header is never served a stale library.  Several sources build in parallel: one nvcc process each.
 Nothing here runs at import time, and there is no fallback: a missing nvcc
 or a failed build raises.
 """
@@ -49,9 +49,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

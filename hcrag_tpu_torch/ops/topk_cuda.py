@@ -1,14 +1,20 @@
-"""Fused int8 cosine + top-k over the index, with its two CUDA kernels.
+"""Fused cosine + top-k over the index, with its CUDA kernels.
 
-Counterpart of `pallas_cosine_top_k_int8` and `_merge_tile_candidates`
-(hcrag_tpu/ops/topk_pallas.py) in the packed int8 mode the query step runs:
+Counterpart of `pallas_cosine_top_k_int8`, `pallas_cosine_top_k` (its
+non-supertile branch) and `_merge_tile_candidates`
+(hcrag_tpu/ops/topk_pallas.py):
 
   * `int8_tile_topk` (kernel B1, csrc/int8_tile_topk.cu) — int8 dots,
     rescale, mask and the exact top-k of every index tile under the packed
     (score | lane) key;
   * `packed_candidate_merge` (kernel B2, csrc/packed_candidate_merge.cu) —
-    the top out_k of B1's candidate pool under the packed
-    (value | slot-major position) key.
+    the top out_k of a packed candidate pool under the packed
+    (value | slot-major position) key;
+  * `float_tile_topk` (kernel B4, csrc/float_tile_topk.cu) — f32 or bf16
+    dots, additive mask and the exact top-k of every tile by raw value, ties
+    to the lowest row;
+  * `float_packed_tile_topk` (kernel B5, csrc/float_tile_topk.cu) — B1's
+    packed-key selection over a float dot.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version, defined beside it, for CPU tensors.  Each counts its
@@ -31,31 +37,41 @@ LANE_MASK = 0x7FF  # the 11 low bits of a packed key hold 2047 - lane
 MAX_TILE_K = 128
 PACKED_MERGE_MIN_POOL = 2 * 2048  # smaller pools take the stable sort
 _INT32_MIN = -(2**31)
+_INT64_MIN = -(2**63)
+_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "int8_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "packed_candidate_merge": (_VP,) * 4 + (_I,) * 4 + (_VP,),
+    "float_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    "float_packed_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
 }
+_SOURCES = {  # entry point -> csrc/<source>.cu, where the two differ
+    "float_tile_topk": "float_tile_topk",
+    "float_packed_tile_topk": "float_tile_topk",
+}
+KERNEL_SOURCES = ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk")
 
 
 def _kernel(name: str):
-    fn = getattr(_build.load(name), name)
+    fn = getattr(_build.load(_SOURCES.get(name, name)), name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_exact_matmul() -> None:
-    # The plain versions take int8 dots as float32 matrix products of
-    # integer values: exact (|dot| <= 127^2 * 384 < 2^24) only in full f32.
+    # The plain versions take their dots as float32 matrix products: int8
+    # values are exact there (|dot| <= 127^2 * 384 < 2^24) and float dots
+    # keep f32 products, but only in full f32 (the TPU kernels pin HIGHEST).
     if (
         torch.backends.cuda.matmul.allow_tf32
         or torch.get_float32_matmul_precision() != "highest"
     ):
         raise RuntimeError(
-            "plain int8 dots need full-precision float32 matmuls: "
+            "plain dots need full-precision float32 matmuls: "
             "TF32 / reduced float32 matmul precision is enabled"
         )
 
@@ -243,7 +259,179 @@ packed_candidate_merge.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The fused selection the query step calls
+# Kernels B4 and B5: per-tile top-k over a float bank
+# ---------------------------------------------------------------------------
+def _float_tiles(q, e, mask, tile_n, packed):
+    """The plain B4's and B5's float dots, in query chunks that keep the
+    [chunk, N] buffers near 2 GiB: yields (lo, hi, s) with s = q[lo:hi] . e^T
+    (B5: plus 2 where the mask is set, -3 where not), f32 [hi - lo, N]."""
+    _check_exact_matmul()
+    b, n = q.shape[0], e.shape[0]
+    dev = q.device
+    offs = torch.where(
+        mask, torch.tensor(2.0, device=dev), torch.tensor(-3.0, device=dev)
+    )
+    e_f = e.to(torch.float32)
+    tiles = -(-n // tile_n)
+    chunk = max(1, (1 << 28) // (tiles * tile_n))
+    for lo in range(0, b, chunk):
+        hi = min(b, lo + chunk)
+        s = q[lo:hi].to(torch.float32) @ e_f.T
+        yield lo, hi, (s + offs[None, :] if packed else s)
+
+
+def float_tile_topk_plain(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B4 (same contract; its f32 sums are
+    taken in another order, so values agree to rounding).
+
+    q [B, D], e [N, D] (both f32 or both bf16), mask [N] bool -> (vals
+    [B, tiles, k] f32, idx [B, tiles, k] int32): every `tile_n`-row tile's k
+    best rows of s = q.e among those with mask set, by raw value
+    descending, ties to the lowest row.  Slots left when a tile has fewer
+    than k valid rows hold (-1e30, the tile's first row): the Pallas
+    kernel's repeated picks of its first column once every column is at
+    -1e30."""
+    b, n = q.shape[0], e.shape[0]
+    dev = q.device
+    tiles = -(-n // tile_n)
+    pad = tiles * tile_n - n
+    # A unique int64 word per row: order-preserving score bits, then
+    # 2^32 - 1 - row_in_tile, so a plain max orders it.
+    low = (2**32 - 1 - torch.arange(tile_n, dtype=torch.int64, device=dev)).repeat(
+        tiles
+    )[:n]
+    base = (torch.arange(tiles, dtype=torch.int64, device=dev) * tile_n)[:, None]
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    for lo, hi, s in _float_tiles(q, e, mask, tile_n, packed=False):
+        bits = (s + 0.0).view(torch.int32)  # -0.0 ties with +0.0
+        skey = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+        word = torch.where(mask, skey.to(torch.int64) * 2**32 + low, _INT64_MIN)
+        if pad:
+            word = torch.nn.functional.pad(word, (0, pad), value=_INT64_MIN)
+        top = word.view(hi - lo, tiles, tile_n).topk(k, dim=2).values
+        valid = top != _INT64_MIN
+        hi32 = torch.div(top, 2**32, rounding_mode="floor")
+        row = 2**32 - 1 - (top - hi32 * 2**32)
+        sk = hi32.to(torch.int32)
+        val = (sk ^ ((sk >> 31) & 0x7FFFFFFF)).view(torch.float32)
+        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
+        out_i[lo:hi] = torch.where(valid, row + base, base).to(torch.int32)
+    return out_v, out_i
+
+
+def float_packed_tile_topk_plain(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B5 (same contract; its f32 sums are
+    taken in another order, so a key can differ where a score lies within
+    rounding of a 2^-11-quantum boundary).
+
+    q [B, D], e [N, D] (both f32 or both bf16), mask [N] bool -> (vals
+    [B, tiles, k] f32, idx [B, tiles, k] int32): the exact top-k of every
+    `tile_n`-row tile under the packed key (bits(s) & ~0x7FF) | (2047 -
+    lane), s = q.e + (2 if mask else -3); values decode as the key's score
+    minus 2, masked rows and empty slots are fillers (-1e30, -1)."""
+    b, n = q.shape[0], e.shape[0]
+    dev = q.device
+    tiles = -(-n // tile_n)
+    pad = tiles * tile_n - n
+    lane = (2047 - torch.arange(tile_n, dtype=torch.int32, device=dev)).repeat(
+        tiles
+    )[:n]
+    base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    for lo, hi, s in _float_tiles(q, e, mask, tile_n, packed=True):
+        keys = (s.view(torch.int32) & ~LANE_MASK) | lane
+        if pad:
+            keys = torch.nn.functional.pad(keys, (0, pad), value=_INT32_MIN)
+        top = keys.view(hi - lo, tiles, tile_n).topk(k, dim=2).values
+        valid = top > 0
+        val = (top & ~LANE_MASK).view(torch.float32) - 2.0
+        idx = 2047 - (top & LANE_MASK) + base
+        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
+        out_i[lo:hi] = torch.where(valid, idx, -1)
+    return out_v, out_i
+
+
+def _float_launch(name, key_bytes, q, e, mask, k, tile_n):
+    """Check the operands of kernel B4 or B5 and launch it."""
+    _require_cuda(q, "q")
+    b, d = q.shape
+    n = e.shape[0]
+    dev = q.device
+    if e.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"e: expected float32 or bfloat16, got {e.dtype}")
+    _check(q, "q", e.dtype, (b, d), dev)
+    _check(e, "e", e.dtype, (n, d), dev)
+    _check(mask, "mask", torch.bool, (n,), dev)
+    if b == 0 or n == 0:
+        raise ValueError(f"{name} needs at least one query and one row")
+    if d % 64 or q.data_ptr() % 16 or e.data_ptr() % 16:
+        raise ValueError("rows must be multiples of 64 values on 16-byte boundaries")
+    if tile_n % 64 or not 64 <= tile_n <= 2048:
+        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
+    if not 1 <= k <= min(MAX_TILE_K, tile_n):
+        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+    tiles = -(-n // tile_n)
+    # Query block, staged rows, key buffer and lists (csrc/float_tile_topk.cu).
+    smem = 4 * (64 * (d + 4) + 64 * 68) + key_bytes * 64 * (68 + k) + 4 * 64
+    if smem > _SMEM_LIMIT or tiles > 65535:
+        raise ValueError(
+            f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
+            f"(limit {_SMEM_LIMIT}) or {tiles} tiles exceed 65535"
+        )
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    err = _kernel(name)(
+        q.data_ptr(), e.data_ptr(), mask.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), b, n, d, k, tile_n, int(e.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out_v, out_i
+
+
+def float_tile_topk(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B4 for CUDA tensors, its plain version for CPU tensors (see
+    `float_tile_topk_plain` for the contract)."""
+    if q.device.type == "cpu":
+        return float_tile_topk_plain(q, e, mask, k, tile_n)
+    out = _float_launch("float_tile_topk", 8, q, e, mask, k, tile_n)
+    float_tile_topk.launches += 1
+    return out
+
+
+float_tile_topk.launches = 0
+
+
+def float_packed_tile_topk(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B5 for CUDA tensors, its plain version for CPU tensors (see
+    `float_packed_tile_topk_plain` for the contract)."""
+    if q.device.type == "cpu":
+        return float_packed_tile_topk_plain(q, e, mask, k, tile_n)
+    out = _float_launch("float_packed_tile_topk", 4, q, e, mask, k, tile_n)
+    float_packed_tile_topk.launches += 1
+    return out
+
+
+float_packed_tile_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused selections the query step calls
 # ---------------------------------------------------------------------------
 def uses_packed_merge(tiles: int, k: int, merge_k: int) -> bool:
     """Whether the merge of `tiles` x `k` candidates goes through kernel B2:
@@ -253,15 +441,16 @@ def uses_packed_merge(tiles: int, k: int, merge_k: int) -> bool:
 
 
 def merge_tile_candidates(
-    vals: torch.Tensor, idxs: torch.Tensor, merge_k: int
+    vals: torch.Tensor, idxs: torch.Tensor, merge_k: int, *, packed: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-tile merge of [B, tiles, k] per-tile candidates into the top
-    max(k, merge_k) (at most the pool).  Large pools go through kernel B2
-    (`uses_packed_merge`, ties by slot-major position); smaller pools take
+    max(k, merge_k) (at most the pool).  Large pools of packed candidates
+    go through kernel B2 (`uses_packed_merge`, ties by slot-major position);
+    smaller pools, and the exact kernel's candidates (`packed=False`), take
     a stable top-k over the tile-major layout (`lax.top_k`'s tie rule)."""
     b, tiles, k = vals.shape
     out_k = min(max(k, merge_k), tiles * k)
-    if uses_packed_merge(tiles, k, merge_k):
+    if packed and uses_packed_merge(tiles, k, merge_k):
         return packed_candidate_merge(vals, idxs, out_k)
     out_v, pos = stable_top_k(vals.reshape(b, -1), out_k)
     return out_v, torch.gather(idxs.reshape(b, -1), 1, pos)
@@ -302,3 +491,44 @@ def cosine_top_k_int8(
         qi, qs, e_int8, e_scale, valid_mask, k, tile_n=tile_n
     )
     return merge_tile_candidates(vals, idxs, merge_k)
+
+
+def cosine_top_k(
+    query_emb: torch.Tensor,
+    index_emb: torch.Tensor,
+    valid_mask: torch.Tensor,
+    top_k: int,
+    *,
+    tile_n: int = 2048,
+    merge_k: int = 0,
+    packed_select: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused cosine + top-k of normalized queries [B, D] over a float index
+    [N, D] (f32 or bf16) with a row filter [N] bool; the counterpart of
+    `pallas_cosine_top_k` without supertiles.
+
+    The queries are cast to a bf16 index's type.  `packed_select=False`:
+    kernel B4 keeps the exact top-k of every tile by raw value and a stable
+    merge keeps the global top max(top_k, merge_k) by (value desc, index
+    asc); filtered rows come back at -1e30 with their real indices.
+    `packed_select=True`: kernel B5 selects under the packed key (values
+    carry its 2^-11 quantization), with the per-tile pick count raised when
+    the tiles are too few to cover merge_k, and the merge goes through
+    kernel B2 for pools of >= 4096.  Surplus slots are (-1e30, -1) fillers.
+    Returns (values [B, m] f32, indices [B, m] int32)."""
+    n = index_emb.shape[0]
+    k = min(top_k, n)
+    if k > MAX_TILE_K:
+        raise ValueError(
+            f"top_k={top_k} over {n} rows: per-tile selection keeps at most "
+            f"{MAX_TILE_K} candidates (ROADMAP.md A6d)"
+        )
+    q = query_emb.to(
+        torch.bfloat16 if index_emb.dtype == torch.bfloat16 else torch.float32
+    )
+    if packed_select:
+        k_tile = tile_pick_count(top_k, n, tile_n, merge_k)
+        vals, idxs = float_packed_tile_topk(q, index_emb, valid_mask, k_tile, tile_n)
+        return merge_tile_candidates(vals, idxs, merge_k)
+    vals, idxs = float_tile_topk(q, index_emb, valid_mask, k, tile_n)
+    return merge_tile_candidates(vals, idxs, merge_k, packed=False)

@@ -1,20 +1,26 @@
-"""QueryEngine — the batched query step in PyTorch.
+"""QueryEngine — the batched query step and its host API in PyTorch.
 
-Counterpart of `hcrag_tpu/query/engine.py` in its int8 + f32-rescore mode
-(`quantize_int8=True`, `int8_rescore=m`, `int8_f32_rescore=True`), the
-configuration `bench.py` measures.  One call of the step runs, in order:
+Counterpart of `hcrag_tpu/query/engine.py` on its TPU (Pallas) route, in
+three residency modes:
 
-  1. int8 cosine + exact per-tile top-k over the index (kernel B1);
-  2. the cross-tile candidate merge that keeps m (kernel B2 for large
-     pools, a stable sort for small ones);
-  3. the exact f32 rescore of those m candidates (`exact_rescore`);
-  4. the relevance metrics on the top-k rows (semantic, entity bitset
-     popcount, intent x type priority, weighted reduction);
-  5. the one-hop ELL graph expansion (`ops/expand.expand_batch_early_exit`);
-  6. scoring of the expanded nodes against the bf16 bank, and the 0.7/0.3
-     blend of relevance and similarity.
+  * float, the default: the index's own f32 (or bf16) bank, selected
+    exactly by kernel B4 with no rescore;
+  * float + `exact_rescore=m` over an f32 index: a bf16 selection bank
+    through kernel B5, the merge (kernel B2 for large pools), and an exact
+    f32 rescore of the m candidates;
+  * int8 + f32 rescore (`quantize_int8=True`, `int8_rescore=m`,
+    `int8_f32_rescore=True`, `bench.py`'s configuration): kernels B1 and B2,
+    then the f32 rescore.
 
-Steps 1 and 2 are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
+One call of the step runs, in order: the selection above; the relevance
+metrics on the top-k rows (semantic, entity bitset popcount, intent x type
+priority, weighted reduction); the one-hop ELL graph expansion
+(`ops/expand.expand_batch_early_exit`); the scoring of the expanded nodes
+and the 0.7/0.3 blend of relevance and similarity.  `retrieve_batch_device`
+runs the selection alone; `find_similar_content`, `process_query` and
+`search_by_category` are the reference-shaped host API over the step.
+
+The selections are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
 PyTorch on the engine's device.  Its f32 dot products are elementwise
 products and sums, so no TF32 / `float32_matmul_precision` setting changes
 them (the JAX engine pins `Precision.HIGHEST`).  The other residency modes
@@ -24,12 +30,13 @@ of the JAX engine raise NotImplementedError naming their ROADMAP.md item.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from hcrag_tpu_torch import config as cfg
+from hcrag_tpu_torch.convert import _tensor
 from hcrag_tpu_torch.core.dense_index import DenseIndex
 from hcrag_tpu_torch.core.graph import CsrGraph
 from hcrag_tpu_torch.core.types import (
@@ -40,23 +47,31 @@ from hcrag_tpu_torch.core.types import (
     REDUCE_MAX,
     REDUCE_WEIGHTED_SUM,
     CompositeWeights,
+    QueryInput,
     QueryIntent,
     ScorerType,
     node_type_id,
     scorer_spec,
 )
 from hcrag_tpu_torch.device import resolve_device
+from hcrag_tpu_torch.ingest.entities import (
+    extract_entities_from_content,
+    infer_query_intent,
+)
+from hcrag_tpu_torch.models.embedder import embedder_from_index
 from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
 from hcrag_tpu_torch.ops.quantize import quantize_rows
 from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 from hcrag_tpu_torch.ops.topk_cuda import (
+    cosine_top_k,
     cosine_top_k_int8,
     tile_pick_count,
     uses_packed_merge,
 )
+from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER
 
-TILE_N = 2048  # index rows per B1 tile: the packed key's lane field is 11 bits
+TILE_N = 2048  # index rows per tile: the packed key's lane field is 11 bits
 
 _GRAPH_LABEL_TO_TYPE = {
     "Product": "product",
@@ -106,6 +121,7 @@ class QueryEngine:
         index: DenseIndex,
         graph: Optional[CsrGraph] = None,
         *,
+        embedder=None,
         ell_max_degree: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
         quantize_int8: bool = False,
@@ -113,40 +129,49 @@ class QueryEngine:
         int8_residual: bool = False,
         int8_rescore: int = 0,
         int8_f32_rescore: bool = False,
+        exact_rescore: int = 0,
         pallas_super: int = 0,
         select_lane_t: int = 0,
     ):
-        if not quantize_int8:
-            raise NotImplementedError(
-                "float selection banks need kernels B4/B5 (ROADMAP.md B4, B5)"
-            )
-        if int8_only or int8_residual or int8_rescore <= 0:
-            raise NotImplementedError(
-                "int8-only and int8-residual modes need the k-pass kernel "
-                "B3 (ROADMAP.md B3)"
-            )
-        if not int8_f32_rescore:
-            raise NotImplementedError(
-                "the bf16 rescore source of the int8 mode is not ported yet "
-                "(ROADMAP.md A6c)"
-            )
-        if pallas_super > 1:
-            raise NotImplementedError(
-                "supertile selection needs kernel B7 (ROADMAP.md B7)"
-            )
         if select_lane_t not in (0, 1):
             raise ValueError(
-                "select_lane_t must be 0 or 1: kernel B1 selects every tile "
+                "select_lane_t must be 0 or 1: the kernels select every tile "
                 f"exactly, so no per-lane depth applies (got {select_lane_t})"
             )
-        if np.asarray(index.emb).dtype != np.float32:
+        host_dtype = np.asarray(index.emb).dtype
+        if quantize_int8:
+            if int8_only or int8_residual or int8_rescore <= 0:
+                raise NotImplementedError(
+                    "int8-only and int8-residual modes need the k-pass kernel "
+                    "B3 (ROADMAP.md B3)"
+                )
+            if not int8_f32_rescore:
+                raise NotImplementedError(
+                    "the bf16 rescore source of the int8 mode is not ported "
+                    "yet (ROADMAP.md A6c)"
+                )
+            if host_dtype != np.float32:
+                raise NotImplementedError(
+                    "the f32 rescore bank needs a float32 index (ROADMAP.md A6c)"
+                )
+        elif host_dtype != np.float32 and host_dtype.name != "bfloat16":
+            raise ValueError(
+                f"float residency needs a float32 or bfloat16 index, got {host_dtype}"
+            )
+        # Supertiles serve the rescored (packed) selections only.
+        if pallas_super > 1 and (quantize_int8 or exact_rescore > 0):
             raise NotImplementedError(
-                "the f32 rescore bank needs a float32 index (ROADMAP.md A6c)"
+                "supertile selection needs kernel B7 (ROADMAP.md B7)"
             )
         self.device = resolve_device(device)
         self.index = index
         self.graph = graph
-        self.int8_rescore = int(int8_rescore)
+        self._embedder = embedder
+        self.quantize_int8 = bool(quantize_int8)
+        self.int8_rescore = int(int8_rescore) if quantize_int8 else 0
+        #: Float path: the oversample rescored from an f32 bank (0 = off;
+        #: dropped to 0 below when the host index is not f32).
+        self.exact_rescore = 0 if quantize_int8 else max(0, int(exact_rescore))
 
         put = self._put
         self._n_rows = np.asarray(index.emb).shape[0]
@@ -179,11 +204,19 @@ class QueryEngine:
             self.d_g_type_ids = None
             self.d_g_row = None
 
+    @property
+    def embedder(self):
+        """The query-text embedder: the one given, else the index's own
+        (`embedder_from_index`, resolved at first use)."""
+        if self._embedder is None:
+            self._embedder = embedder_from_index(self.index)
+        return self._embedder
+
     # ------------------------------------------------------------------
     # Banks
     # ------------------------------------------------------------------
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return _tensor(a).to(self.device)
 
     def _padded_host_emb(self) -> np.ndarray:
         """The host index padded with zero rows to a whole number of tiles;
@@ -196,14 +229,22 @@ class QueryEngine:
         return emb_host
 
     def _init_emb_banks(self, emb_host: np.ndarray) -> None:
-        """The int8 selection bank and its row scales, the bf16 bank for
-        expanded-node scoring, and the f32 rescore bank."""
-        q8, scale = quantize_rows(emb_host)
-        self.d_emb_int8 = self._put(q8)
-        self.d_emb_scale = self._put(scale)
-        emb_f32 = self._put(emb_host)
-        self.d_emb = emb_f32.to(torch.bfloat16)
-        self.d_emb_f32 = emb_f32
+        """The selection bank, the bank expanded-node scoring gathers from
+        (`d_emb`), and the f32 rescore bank where the mode has one."""
+        if self.quantize_int8:
+            q8, scale = quantize_rows(emb_host)
+            self.d_emb_int8 = self._put(q8)
+            self.d_emb_scale = self._put(scale)
+        if self.quantize_int8 or (self.exact_rescore and emb_host.dtype == np.float32):
+            # bf16 rows for selection (float) and expanded-node scoring; the
+            # exact f32 rows of only the merged candidates are rescored.
+            emb_f32 = self._put(emb_host)
+            self.d_emb = emb_f32.to(torch.bfloat16)
+            self.d_emb_f32 = emb_f32
+        else:
+            self.exact_rescore = 0  # needs an f32 source to rescore
+            self.d_emb = self._put(emb_host)
+            self.d_emb_f32 = None
 
     def _bank(self) -> Dict[str, torch.Tensor]:
         """The device tensors of the index and graph, under the keys of the
@@ -214,10 +255,12 @@ class QueryEngine:
             "counts": self.d_counts,
             "graph_ids": self.d_graph_ids,
             "emb": self.d_emb,
-            "emb_f32": self.d_emb_f32,
-            "emb_int8": self.d_emb_int8,
-            "emb_scale": self.d_emb_scale,
         }
+        if self.d_emb_f32 is not None:
+            bank["emb_f32"] = self.d_emb_f32
+        if self.quantize_int8:
+            bank["emb_int8"] = self.d_emb_int8
+            bank["emb_scale"] = self.d_emb_scale
         if self.d_neighbors is not None:
             bank["neighbors"] = self.d_neighbors
             bank["g_type_ids"] = self.d_g_type_ids
@@ -225,34 +268,45 @@ class QueryEngine:
         return bank
 
     def _gather_emb_rows(self, indices: torch.Tensor, bank) -> torch.Tensor:
-        """bf16 embedding rows at arbitrary indices ([..., D])."""
+        """Embedding rows of the `emb` bank at arbitrary indices ([..., D])."""
         return bank["emb"][indices]
 
     # ------------------------------------------------------------------
     # Selection
     # ------------------------------------------------------------------
     def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
-        """Kernel B1 + merge over the bank: (values [B, m], row indices
-        [B, m]) with m = max(top_k, fetch_k) candidates, fillers (-1e30, -1)
-        beyond the pool; no rescore here."""
+        """The mode's selection kernel + merge over the bank: (values
+        [B, m], row indices [B, m]) with m = max(top_k, fetch_k) candidates;
+        no rescore here."""
         m = max(top_k, fetch_k)
         merge_k = m if m > top_k else 0
-        e8 = bank["emb_int8"]
-        pad = e8.shape[0] - type_mask.shape[0]
+        sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
+        pad = sel.shape[0] - type_mask.shape[0]
         if pad:
             type_mask = torch.cat(
                 [type_mask, torch.zeros(pad, dtype=torch.bool, device=type_mask.device)]
             )
-        return cosine_top_k_int8(
-            q_emb, e8, bank["emb_scale"], type_mask, top_k,
-            tile_n=TILE_N, merge_k=merge_k,
+        if self.quantize_int8:
+            return cosine_top_k_int8(
+                q_emb, sel, bank["emb_scale"], type_mask, top_k,
+                tile_n=TILE_N, merge_k=merge_k,
+            )
+        return cosine_top_k(
+            q_emb, sel, type_mask, top_k, tile_n=TILE_N, merge_k=merge_k,
+            packed_select=self.exact_rescore > 0,
         )
 
+    def _rescore_m(self) -> int:
+        """Oversample of the exact f32 rescore (0 = off)."""
+        return self.int8_rescore if self.quantize_int8 else self.exact_rescore
+
     def _topk_impl(self, q_emb, type_mask, top_k: int, bank):
-        """Selection of the m = int8_rescore best candidates, then their
-        exact f32 rescore down to top_k."""
-        m = self.int8_rescore
+        """Selection of the top_k (or, with a rescore, of the m best
+        candidates, then their exact f32 rescore down to top_k)."""
+        m = self._rescore_m()
         v, i = self._local_select(q_emb, bank, type_mask, top_k, max(top_k, m))
+        if not m:
+            return v, i
         return exact_rescore(
             q_emb, v, i, lambda ix: bank["emb_f32"][ix], top_k
         )
@@ -260,35 +314,45 @@ class QueryEngine:
     def resolved_kernel_config(self, batch: int, top_k: int = 10) -> Dict:
         """The selection strategy a `query_batch` of this shape runs.
         `tile_k` is the per-tile pick count the kernel is launched with
-        (after the small-pool raise); `lane_t` is 0 because every tile is
-        selected exactly."""
-        m = self.int8_rescore
+        (after the small-pool raise of the packed selections); `lane_t` is 0
+        and `two_level` False because every tile is selected exactly."""
+        m = self._rescore_m()
         merge_k = m if m > top_k else 0
-        n_bank = int(self.d_emb_int8.shape[0])
+        packed = self.quantize_int8 or self.exact_rescore > 0
+        sel = self.d_emb_int8 if self.quantize_int8 else self.d_emb
+        n_bank = int(sel.shape[0])
         tiles = -(-n_bank // TILE_N)
-        tile_k = tile_pick_count(top_k, n_bank, TILE_N, merge_k)
-        packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
-        on_card = self.device.type == "cuda"
+        if packed:
+            tile_k = tile_pick_count(top_k, n_bank, TILE_N, merge_k)
+            packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
+        else:
+            tile_k, packed_merge = min(top_k, n_bank), False
+        kernel = (
+            "int8_tile_topk" if self.quantize_int8
+            else "float_packed_tile_topk" if packed
+            else "float_tile_topk"
+        )
+        plain = "" if self.device.type == "cuda" else "_plain"
         return {
-            "quantize_int8": True,
+            "quantize_int8": self.quantize_int8,
             "int8_only": False,
             "int8_residual": False,
             "rescore_oversample": m,
             "merge_k": merge_k,
-            "kernel": "int8_tile_topk" if on_card else "int8_tile_topk_plain",
-            "merge": (
-                ("packed_candidate_merge" if on_card else "packed_candidate_merge_plain")
-                if packed_merge else "stable_sort"
-            ),
-            "packed_select": True,
+            "kernel": kernel + plain,
+            "merge": "packed_candidate_merge" + plain if packed_merge else "stable_sort",
+            "packed_select": packed,
             "two_level": False,
             "tile_n": TILE_N,
             "tile_k": tile_k,
             "sub_batch": batch,
             "super_tiles": 1,
             "lane_t": 0,
-            "select_bank": "int8",
-            "rescore_bank": "f32",
+            "select_bank": (
+                "int8" if self.quantize_int8
+                else str(sel.dtype).removeprefix("torch.")
+            ),
+            "rescore_bank": "f32" if m else "",
             "device": str(self.device),
         }
 
@@ -396,6 +460,39 @@ class QueryEngine:
     # ------------------------------------------------------------------
     # Batched API
     # ------------------------------------------------------------------
+    def _query_tensor(self, query_embs) -> torch.Tensor:
+        """[B, D] f32 queries on the device: a 2-D tensor is taken as
+        already normalized; anything else is L2-normalized on the host."""
+        if isinstance(query_embs, torch.Tensor) and query_embs.ndim == 2:
+            return query_embs.to(device=self.device, dtype=torch.float32)
+        qh = np.asarray(query_embs, dtype=np.float32)
+        if qh.ndim == 1:
+            qh = qh[None, :]
+        qh = qh / np.maximum(np.linalg.norm(qh, axis=1, keepdims=True), 1e-12)
+        return self._put(qh)
+
+    def _type_mask(self, category_filter: Optional[str]) -> torch.Tensor:
+        """The row filter [N] bool, sized to the unpadded rows: the bank's
+        pad rows stay masked."""
+        if category_filter:
+            return self._put(self.index.type_mask(category_filter))
+        return torch.ones((self._n_rows,), dtype=torch.bool, device=self.device)
+
+    def retrieve_batch_device(
+        self,
+        query_embs,
+        *,
+        top_k: int = cfg.DEFAULT_TOP_K,
+        category_filter: Optional[str] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Retrieval only: the selection (and the mode's rescore) without
+        metrics or expansion.  Returns (scores [B, k], indices [B, k]) on
+        the engine's device, without waiting for the device."""
+        return self._topk_impl(
+            self._query_tensor(query_embs), self._type_mask(category_filter),
+            top_k, self._bank(),
+        )
+
     def query_batch_device(
         self,
         query_embs,
@@ -419,14 +516,7 @@ class QueryEngine:
         ([4, NUM_INTENTS, NUM_NODE_TYPES]) switches the reduction to
         per-(intent, node-type) weights."""
         dev = self.device
-        if isinstance(query_embs, torch.Tensor) and query_embs.ndim == 2:
-            q = query_embs.to(device=dev, dtype=torch.float32)
-        else:
-            qh = np.asarray(query_embs, dtype=np.float32)
-            if qh.ndim == 1:
-                qh = qh[None, :]
-            qh = qh / np.maximum(np.linalg.norm(qh, axis=1, keepdims=True), 1e-12)
-            q = self._put(qh)
+        q = self._query_tensor(query_embs)
         b = q.shape[0]
 
         if intents is None:
@@ -440,12 +530,7 @@ class QueryEngine:
         for i, ents in enumerate(entity_lists or ()):
             qb[i], qo[i] = vocab.encode(ents)
         q_bits, q_oov = self._put(qb.view(np.int32)), self._put(qo)
-
-        if category_filter:
-            type_mask = self._put(self.index.type_mask(category_filter))
-        else:
-            # Sized to the unpadded rows: the bank's pad rows stay masked.
-            type_mask = torch.ones((self._n_rows,), dtype=torch.bool, device=dev)
+        type_mask = self._type_mask(category_filter)
 
         w, reduction = scorer_spec(scorer_type, weights)
         if dynamic_weight_tensor is not None:
@@ -483,4 +568,135 @@ class QueryEngine:
         )
         return QueryBatchResult(
             **{n: v.cpu().numpy() for n, v in zip(names, out)}
+        )
+
+    # ------------------------------------------------------------------
+    # Reference-shaped host API
+    # ------------------------------------------------------------------
+    def find_similar_content(
+        self,
+        query_embedding: np.ndarray,
+        top_k: int = cfg.DEFAULT_TOP_K,
+        similarity_threshold: float = cfg.DEFAULT_SIMILARITY_THRESHOLD,
+    ) -> List[Dict]:
+        """The top_k rows of one query embedding with cosine at or above
+        the threshold, as {content, metadata, similarity_score} dicts."""
+        res = self.query_batch(query_embedding, top_k=top_k)
+        results = []
+        for score, idx in zip(res.top_scores[0], res.top_indices[0]):
+            if score >= similarity_threshold:
+                results.append(
+                    {
+                        "content": self.index.texts[int(idx)],
+                        "metadata": self.index.metadata[int(idx)],
+                        "similarity_score": float(score),
+                    }
+                )
+        return results
+
+    def process_query(
+        self,
+        query: str,
+        top_k: int = cfg.DEFAULT_TOP_K,
+        similarity_threshold: float = cfg.DEFAULT_SIMILARITY_THRESHOLD,
+        parser=None,
+        with_confidence: Optional[bool] = None,
+    ) -> Dict:
+        """One text query end to end: parse -> embed -> retrieve ->
+        summarize.  `parser` optionally supplies an LLM query parser (its
+        `parse_query`); without one, or when it fails, the raw query is the
+        search text.  `with_confidence` (auto: on for a trainable encoder
+        over <= 100k rows, so off for the hashing embedder) needs the
+        encoder-confidence model, which is not ported yet."""
+        want_conf = with_confidence
+        if want_conf is None:
+            want_conf = (
+                hasattr(self.embedder, "load_params") and self.index.n <= 100_000
+            )
+        if want_conf:
+            raise NotImplementedError(
+                "encoder confidence (models/confidence.py) is not ported yet "
+                "(ROADMAP.md A8)"
+            )
+        parsed = {"search_text": query}
+        if parser is not None:
+            with GLOBAL_TIMER.span("process_query/parse"):
+                try:
+                    parsed = parser.parse_query(query)
+                except Exception:
+                    parsed = {"search_text": query}
+        search_text = parsed.get("search_text", query)
+        with GLOBAL_TIMER.span("process_query/embed"):
+            query_embedding = np.asarray(self.embedder.encode([search_text])[0])
+        with GLOBAL_TIMER.span("process_query/retrieve"):
+            results = self.find_similar_content(
+                query_embedding,
+                top_k=top_k,
+                similarity_threshold=similarity_threshold,
+            )
+        avg = (
+            float(np.mean([r["similarity_score"] for r in results]))
+            if results
+            else 0.0
+        )
+        return {
+            "parsed_query": parsed,
+            "search_text": search_text,
+            "results": results,
+            "summary": (
+                f"Found {len(results)} results with average similarity: {avg:.3f}"
+            ),
+            "query_embedding": query_embedding,
+        }
+
+    def search_by_category(
+        self,
+        query: str,
+        category_filter: Optional[str] = None,
+        top_k: int = cfg.DEFAULT_TOP_K,
+    ) -> Dict:
+        """Type-masked search: no threshold, ranked dicts of the rows that
+        match the filter."""
+        if category_filter and not self.index.type_mask(category_filter).any():
+            return {"results": [], "summary": "No items match the filter criteria"}
+        q_emb = np.asarray(self.embedder.encode([query])[0])
+        res = self.query_batch(q_emb, top_k=top_k, category_filter=category_filter)
+        # Filtered rows come back at -1e30 and packed fillers with index -1:
+        # keep only true matches, ranked over the returned list.
+        mask = (
+            np.asarray(self.index.type_mask(category_filter))
+            if category_filter
+            else None
+        )
+        results = []
+        for score, idx in zip(res.top_scores[0], res.top_indices[0]):
+            idx = int(idx)
+            if idx < 0 or not np.isfinite(score) or score <= -1e29:
+                continue
+            if mask is not None and not mask[idx]:
+                continue
+            results.append(
+                {
+                    "rank": len(results) + 1,
+                    "similarity_score": float(score),
+                    "content": self.index.texts[idx],
+                    "metadata": self.index.metadata[idx],
+                }
+            )
+        return {
+            "results": results,
+            "summary": (
+                f"Found {len(results)} results in "
+                f"{category_filter or 'all categories'}"
+            ),
+        }
+
+    def create_query_input(self, query: str) -> QueryInput:
+        """A QueryInput with the query's embedding, keyword entities and
+        keyword intent."""
+        return QueryInput(
+            text=query,
+            embeddings=np.asarray(self.embedder.encode([query])[0]),
+            entities=extract_entities_from_content(query),
+            intent=infer_query_intent(query),
         )

@@ -1,0 +1,73 @@
+"""Comparisons of the float selection kernels with their plain versions.
+
+Kernels B4 and B5 take their f32 dot sums in another order than the plain
+versions' matrix products, so the two agree to rounding, not to the bit.
+These checks state how far they may differ and raise AssertionError past
+that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
+
+  * B4 (`check_exact_topk`): values within `atol`; an index may differ only
+    where the two rows' scores (recomputed in float64) lie within `atol` of
+    each other, a near-tie that rounding can order either way.
+  * B5 (`check_packed_topk`): keys equal, except in a tile where a row that
+    either side selected has its shifted score within 1e-6 of a multiple of
+    the key quantum (2^-11 above 2, 2^-12 below), where rounding can move
+    the row's key by one quantum.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEAR_BOUNDARY = 1e-6
+
+
+def _dots(q: torch.Tensor, e: torch.Tensor, b_idx, rows) -> torch.Tensor:
+    """float64 dots of queries q[b_idx] with rows e[rows] (same shapes)."""
+    return (q[b_idx].double() * e[rows.long()].double()).sum(dim=-1)
+
+
+def check_exact_topk(kv, ki, pv, pi, q, e, mask, atol: float = 1e-5) -> Tuple[float, int]:
+    """B4's kernel output (kv, ki) against its plain version's (pv, pi), all
+    [B, tiles, k], for operands q [B, D], e [N, D], mask [N].  Returns (max
+    abs value difference, number of indices that differ at near-ties)."""
+    err = float((kv.double() - pv.double()).abs().max())
+    if err > atol:
+        raise AssertionError(f"values differ by {err} > {atol}")
+    bad = (ki != pi).nonzero()
+    if len(bad):
+        at = tuple(bad.T)
+        rk, rp = ki[at], pi[at]
+        gap = (_dots(q, e, bad[:, 0], rk) - _dots(q, e, bad[:, 0], rp)).abs()
+        ok = (kv[at] > -1e29) & mask[rk.long()] & mask[rp.long()] & (gap <= atol)
+        if not bool(ok.all()):
+            first = bad[~ok][0].tolist()
+            raise AssertionError(f"indices differ at {first} beyond a near-tie")
+    return err, len(bad)
+
+
+def check_packed_topk(kv, ki, pv, pi, q, e, max_share: float = 0.02) -> Tuple[float, int]:
+    """B5's kernel output (kv, ki) against its plain version's (pv, pi), all
+    [B, tiles, k], for operands q [B, D], e [N, D].  Returns (max abs value
+    difference over the slots that agree on their row, number of tiles that
+    differ next to a key-quantum boundary); raises if such tiles exceed
+    `max_share` of all."""
+    same_i = ki == pi
+    same = same_i & (kv.view(torch.int32) == pv.view(torch.int32))
+    bad = (~same).any(dim=2).nonzero()
+    if len(bad):
+        b_idx, t_idx = bad[:, 0], bad[:, 1]
+        rows = torch.cat([ki[b_idx, t_idx], pi[b_idx, t_idx]], dim=1)
+        x = _dots(q, e, b_idx[:, None].expand_as(rows), rows.clamp(min=0)) + 2.0
+        quantum = torch.where(x >= 2.0, 2.0**-11, 2.0**-12)
+        near = ((x - torch.round(x / quantum) * quantum).abs() < NEAR_BOUNDARY)
+        excused = (near & (rows >= 0)).any(dim=1)
+        if not bool(excused.all()):
+            first = bad[~excused][0].tolist()
+            raise AssertionError(f"keys differ in (query, tile) {first} away from a boundary")
+        if len(bad) > max_share * ki.shape[0] * ki.shape[1]:
+            raise AssertionError(f"{len(bad)} tiles differ: more than {max_share:.0%}")
+    diff = (kv.double() - pv.double()).abs()
+    err = float(torch.where(same_i, diff, 0.0).max())
+    return err, len(bad)

@@ -79,8 +79,93 @@ def test_packed_candidate_merge_equals_plain(cuda, b, tiles, k, out_k):
     assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
 
 
+def _float_inputs(b, n, d, seed, dev, dtype, mask_frac=0.1):
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((n, d)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    mask = torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
+    return (torch.from_numpy(q).to(dev, dtype), torch.from_numpy(e).to(dev, dtype),
+            mask)
+
+
+FLOAT_CASES = [(5, 5000, 128, 10, 1024), (70, 9000, 384, 16, 2048),
+               (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k,tile", FLOAT_CASES)
+def test_float_tile_topk_equals_plain(cuda, b, n, d, k, tile, dtype):
+    from hcrag_tpu_torch.testing import check_exact_topk
+
+    q, e, mask = _float_inputs(b, n, d, b + k, cuda, dtype)
+    kv, ki = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    pv, pi = topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile)
+    torch.cuda.synchronize()
+    check_exact_topk(kv, ki, pv, pi, q, e, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k,tile", FLOAT_CASES)
+def test_float_packed_tile_topk_equals_plain(cuda, b, n, d, k, tile, dtype):
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    q, e, mask = _float_inputs(b, n, d, b + k, cuda, dtype)
+    kv, ki = topk_cuda.float_packed_tile_topk(q, e, mask, k, tile_n=tile)
+    pv, pi = topk_cuda.float_packed_tile_topk_plain(q, e, mask, k, tile_n=tile)
+    torch.cuda.synchronize()
+    check_packed_topk(kv, ki, pv, pi, q, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_tile_topk_ties_and_fills_exact(cuda, dtype):
+    """A zero query ties every row at +0.0 (the lowest rows win); a filter
+    with 3 valid rows leaves the rest of each tile's slots at (-1e30, the
+    tile's first row).  Both exact."""
+    q, e, _ = _float_inputs(8, 3000, 128, 2, cuda, dtype)
+    q[:4] = 0
+    mask = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    mask[[5, 1500, 2999]] = True
+    kv, ki = topk_cuda.float_tile_topk(q, e, torch.ones_like(mask), 10, tile_n=1024)
+    want = torch.arange(3, device=cuda)[:, None] * 1024 + torch.arange(10, device=cuda)
+    assert torch.equal(ki[:4], want.expand(4, 3, 10).to(torch.int32))
+    assert bool((kv[:4] == 0).all()) and not bool(torch.signbit(kv[:4]).any())
+    kv, ki = topk_cuda.float_tile_topk(q, e, mask, 10, tile_n=1024)
+    pv, pi = topk_cuda.float_tile_topk_plain(q, e, mask, 10, tile_n=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv[:, :, 1:], pv[:, :, 1:])
+    assert bool((kv[:, :, 1:] == -1e30).all())
+    assert torch.equal(ki[:, :, 1:], (torch.arange(3, device=cuda) * 1024)[None, :, None]
+                       .expand(8, 3, 9).to(torch.int32))
+
+
 FIELDS = ("top_scores", "top_indices", "relevance", "combined",
           "expanded_nodes", "expanded_counts", "expanded_relevance")
+
+
+FLOAT_MODES = {"int8": dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True),
+               "f32": dict(), "rescore": dict(exact_rescore=32)}
+
+
+@pytest.mark.parametrize("mode", ["f32", "rescore"])
+def test_float_engine_on_card_equals_engine_on_cpu(cuda, mode):
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(20_000, 384, graph_degree=4)
+    opts = dict(ell_max_degree=8, **FLOAT_MODES[mode])
+    q = np.random.default_rng(1).standard_normal((64, 384)).astype(np.float32)
+    gpu = QueryEngine(index, graph, device=cuda, **opts)
+    assert gpu.resolved_kernel_config(64)["kernel"] in (
+        "float_tile_topk", "float_packed_tile_topk")
+    rg = gpu.query_batch(q, top_k=10)
+    rc = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, top_k=10)
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), atol=1e-5, rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +174,7 @@ def small_engines(cuda):
     from hcrag_tpu_torch.utils.synthetic import synthetic_setup
 
     index, graph = synthetic_setup(20_000, 384, graph_degree=4)
-    opts = dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True,
-                ell_max_degree=8)
+    opts = dict(ell_max_degree=8, **FLOAT_MODES["int8"])
     q = np.random.default_rng(0).standard_normal((64, 384)).astype(np.float32)
     return (QueryEngine(index, graph, device=cuda, **opts),
             QueryEngine(index, graph, device="cpu", **opts), q)

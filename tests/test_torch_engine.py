@@ -106,7 +106,7 @@ def test_resolved_kernel_config(engines):
 @pytest.mark.parametrize(
     "opts",
     [
-        dict(quantize_int8=False),
+        dict(exact_rescore=32, pallas_super=4),
         dict(quantize_int8=True, int8_only=True),
         dict(quantize_int8=True, int8_rescore=32),
         dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True,
