@@ -10,44 +10,60 @@ last line:
   2. build   — nvcc builds every kernel source from csrc/, all in parallel
                (sm_90a);
   3. kernels — every kernel against its plain PyTorch version on the card:
-               B1 and B2 bit for bit (b=512 at D=384 over 20 tiles with a
-               ragged last tile and masked rows, the 4890-candidate pool,
-               all-tied input, a small pool, the per-tile pick-count
-               raise); B4 (f32 and bf16 banks) and B5 at the same shapes
-               under the rules of `hcrag_tpu_torch/testing.py`, and exactly
-               on a zero query, on one-hot queries under a filter that
-               leaves fewer than k rows in a tile, and in the pick-count
-               raise case;
+               B1, B3e and B2 bit for bit (b=512 at D=384 over 20 tiles
+               with a ragged last tile and masked rows, the 4890-candidate
+               pool, all-tied input, a small pool, pools past one block's
+               shared memory that B2 merges in chunks (10M rows at per-tile
+               k = 12, and k = 128), the per-tile pick-count raise, B3e
+               under filters that leave fewer than k rows in a
+               tile or fewer than top_k in the bank); B4 (f32 and bf16
+               banks) and B5 at the same shapes under the rules of
+               `hcrag_tpu_torch/testing.py`, and exactly on a zero query,
+               on one-hot queries under a filter that leaves fewer than k
+               rows in a tile, and in the pick-count raise case; B6 within
+               1e-5 at B=256 x 8192 nodes (both reductions), one query x
+               8192 nodes and a ragged 8191 nodes;
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
-               (kernels B1, B2): launch counts from that run, recall@10
-               against f32 brute force on 256 queries, the card engine
-               against the CPU engine on a small index, a profile of the
-               step, B1 and B2 against their plain versions at the path's
-               shapes, the card engine with TF32 enabled against itself
-               without it, then timings (CUDA events) of the step and of
-               each kernel beside its plain version, its bound and, where
-               one exists, a one-call PyTorch equivalent;
+               (kernels B1, B2);
   5. path F2 — the same index in `bench.py`'s bf16 mode (`exact_rescore=32`:
-               B5 over a bf16 bank, B2, the f32 rescore), B=8192: launch
-               counts, recall, card vs CPU engine, step time, B5 at the
-               path's shapes;
+               B5 over a bf16 bank, B2, the f32 rescore), B=8192;
   6. path F1 — the default engine (B4 over the f32 bank), `query_batch` at
                B=1024, then `process_query`, `find_similar_content`,
                `search_by_category` (every 500th row re-typed) and
                `retrieve_batch_device` at B=1024, each of which must launch
-               B4; recall, card vs CPU engine, step time, B4 at the path's
-               shapes.
+               B4;
+  7. path D3 — the same rows rounded to bf16 (as `bench.py` hands the index
+               in its BENCH_INT8_MODE="" mode), `quantize_int8=True,
+               int8_rescore=32`: B1, B2, the rescore from bf16 rows, B=8192;
+  8. path R  — `batch_isRelevant` over 8192 nodes (D=384) for the six
+               multi-metric strategies, offline LLM client: one launch of
+               B6 per call, scores against the CPU's plain route, host time
+               of each call beside the unfused route on the card;
+  9. path D1 — a 10,000,000 x 384 index, `quantize_int8=True,
+               int8_residual=True, int8_rescore=32`, B=2048 (the JAX repo's
+               10M one-chip deployment): B1, B2, the rescore from the
+               int8 + residual reconstruction; then `cosine_top_k_int8(...,
+               packed_select=False)` over its bank (kernel B3e);
+ 10. path D2 — the same rows rounded to bf16, `int8_only=True` (no
+               rescore): B1 at per-tile k = top_k, the contract of B3's
+               k-pass packed branch, and B2; its gate queries' top-10 must
+               equal the plain route's.
 
-The synthetic index is built once and shared; each engine is freed before
-the next.  The second-to-last line is a JSON object listing the kernels; the
-last is {"ok": true, "device": {...}}.  Exits non-zero without a result when
-CUDA is unavailable or the package is missing.
+Every engine path prints: launch counts (set to 0 just before its
+`query_batch`), recall@10 against f32 brute force on 256 queries (TF32 off),
+a small card-vs-CPU engine check, host set-up time, step time (CUDA events),
+a profile of the step, peak device memory, and its kernels at its shapes
+against their plain versions, with their bounds.  Each engine and index is
+freed before the next.  The second-to-last line is a JSON object listing the
+kernels; the last is {"ok": true, "device": {...}}.  Exits non-zero without
+a result when CUDA is unavailable or the package is missing.
 """
 
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -61,6 +77,13 @@ N_ROWS, DIM, BATCH, TOP_K, DEPTH = 1_000_000, 384, 8192, 10, 1
 F1_BATCH = 1024  # the JAX float path's own sub-batch
 RESCORE = 32
 GATE_QUERIES, MIN_RECALL = 256, 0.998
+N_10M, D_BATCH = 10_000_000, 2048  # the density paths (results.json's B)
+D2_MIN_RECALL = 0.90  # int8 selection without a rescore
+# The rescore from bf16 rows cannot order f32 near-ties: the JAX repo
+# recorded 0.9973 for this mode on the same 256 queries
+# (benchmarks/results.json, synthetic_1M_int8_rescore).
+D3_MIN_RECALL = 0.997
+R_NODES = 8192
 
 
 def log(*a):
@@ -137,7 +160,9 @@ def phase_kernels(dev) -> dict:
         e = same_bits(kv, ki, pv, pi)
         err["packed_candidate_merge"] = max(err["packed_candidate_merge"], e)
         b, tiles, k = v.shape
-        log(f"  B2 {name}: b={b} pool={tiles} x {k} out_k={out_k}: bit-equal")
+        ms = cuda_ms(lambda: tc.packed_candidate_merge(v, i, out_k), reps=5)
+        log(f"  B2 {name}: b={b} pool={tiles} x {k} ({tc.merge_chunks(tiles, k)[1]} "
+            f"chunk(s)) out_k={out_k}: bit-equal, {ms:.4f} ms")
 
     # The main path's width and tile: b=512 over 20 tiles of 2048, the last
     # ragged, a tenth of the rows masked.
@@ -155,19 +180,26 @@ def phase_kernels(dev) -> dict:
     b1("k128_ragged_queries", b1_inputs(130, 4096, 128, 3, dev), 128, 2048)
 
     # B2 reads B1's [b, tiles, k] output; the last twentieth of the tiles
-    # hold only fillers.
+    # hold only fillers.  10M rows at per-tile k = 12 (58,596 candidates)
+    # and k = 128 pass one block's shared memory: B2 selects in chunks.
     rng = np.random.default_rng(4)
-    for name, b, tiles, ties in (("bench", 512, 489, False),
-                                 ("ties", 64, 489, True),
-                                 ("small_pool", 64, 100, False)):
-        v = (rng.standard_normal((b, tiles, TOP_K)) * 0.1).astype(np.float32)
+    for name, b, tiles, k, out_k, ties in (
+            ("bench", 512, 489, TOP_K, RESCORE, False),
+            ("ties", 64, 489, TOP_K, RESCORE, True),
+            ("small_pool", 64, 100, TOP_K, RESCORE, False),
+            ("10M_k12_two_chunks", 256, 4883, 12, RESCORE, False),
+            ("10M_k12_two_chunks_ties", 64, 4883, 12, RESCORE, True),
+            ("k128_many_chunks", 8, 20_000, 128, 128, True)):
+        if ("chunks" in name) != (tc.merge_chunks(tiles, k)[1] > 1):
+            raise AssertionError(f"{name}: not chunked as its name says")
+        v = (rng.standard_normal((b, tiles, k)) * 0.1).astype(np.float32)
         if ties:
             v = np.round(v * 8) / 8
         v[:, -tiles // 20:] = -1e30
-        i = rng.integers(0, N_ROWS, size=(b, tiles, TOP_K)).astype(np.int32)
+        i = rng.integers(0, N_10M, size=(b, tiles, k)).astype(np.int32)
         i[:, -tiles // 20:] = -1
         b2(name, torch.from_numpy(v.astype(np.float32)).to(dev),
-           torch.from_numpy(i).to(dev), RESCORE)
+           torch.from_numpy(i).to(dev), out_k)
 
     # A pool below 4096 takes the stable sort, not B2.
     vals, idxs = tc.int8_tile_topk(*b1_inputs(64, 40_000, DIM, 5, dev), TOP_K)
@@ -176,6 +208,33 @@ def phase_kernels(dev) -> dict:
     if tc.packed_candidate_merge.launches != before:
         raise AssertionError("a 200-candidate pool was routed through B2")
     log("  merge routing: pool 200 < 4096 takes the stable sort")
+
+    # B3e at B1's shapes, then under filters: 3 valid rows in tile 0 (its
+    # other slots fill with (-1e30, 0)), and 3 valid rows in the bank.
+    err["int8_exact_tile_topk"] = 0.0
+
+    def b3e(name, args, k, tile):
+        kv, ki = tc.int8_exact_tile_topk(*args, k, tile_n=tile)
+        e = same_bits(kv, ki, *tc.int8_exact_tile_topk_plain(*args, k, tile_n=tile))
+        err["int8_exact_tile_topk"] = max(err["int8_exact_tile_topk"], e)
+        log(f"  B3e {name}: b={args[0].shape[0]} n={args[2].shape[0]} "
+            f"d={args[0].shape[1]} k={k} tile={tile}: bit-equal")
+        return kv, ki
+
+    b3e("bench", b1_inputs(512, 40_000, DIM, 6, dev), TOP_K, 2048)
+    b3e("k128_ragged_queries", b1_inputs(130, 4096, 128, 7, dev), 128, 2048)
+    q8, qs, e8, es, mask = b1_inputs(64, 40_000, DIM, 8, dev)
+    mask[:2048] = False
+    mask[[5, 700, 2000]] = True
+    kv, ki = b3e("filter_3_rows_in_tile_0", (q8, qs, e8, es, mask), TOP_K, 2048)
+    if not (bool((kv[:, 0, 3:] == -1e30).all()) and bool((ki[:, 0, 3:] == 0).all())):
+        raise AssertionError("B3e: tile 0's empty slots are not (-1e30, 0)")
+    mask[:] = False
+    mask[[5, 20_000, 39_999]] = True
+    v, i = tc.merge_tile_candidates(*b3e("filter_3_rows_in_bank", (q8, qs, e8, es, mask),
+                                         TOP_K, 2048), 0, packed=False)
+    if not (bool((i[:, 3:] == 0).all()) and bool((v[:, 3:] == -1e30).all())):
+        raise AssertionError("B3e: the merge of a 3-row bank does not fill with (-1e30, 0)")
     return err
 
 
@@ -264,23 +323,89 @@ def phase_float_kernels(dev, err: dict) -> None:
     b5("k128_ragged_queries", float_inputs(130, 4096, 128, 27, dev, torch.bfloat16), 128)
 
 
-def recall_at_k(emb_f32: torch.Tensor, queries: torch.Tensor, got: np.ndarray) -> float:
-    """recall@k of `got` against f32 brute force with ties to the lowest
-    index, over the first GATE_QUERIES queries (row chunks of 250k)."""
-    q = queries[:GATE_QUERIES]
-    best_v = torch.full((q.shape[0], TOP_K), -float("inf"), device=q.device)
-    best_i = torch.zeros((q.shape[0], TOP_K), dtype=torch.int64, device=q.device)
+def b6_inputs(b, n, seed, dev, w=8):
+    """Operands of kernel B6: normalized f32 rows, random bit words (every
+    other query and every 7th node without entities), intents, types, the
+    weights, the priority table and an llm column."""
+    from hcrag_tpu_torch.core.types import PRIORITY_MATRIX
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, DIM)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    e = rng.standard_normal((n, DIM)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    qb = (rng.integers(0, 2**32, (b, w), dtype=np.uint32)
+          & rng.integers(0, 2**32, (b, w), dtype=np.uint32))
+    nb = (rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+          & rng.integers(0, 2**32, (n, w), dtype=np.uint32))
+    qb[::2] = 0
+    nb[::7] = 0
+    qc = np.unpackbits(qb.view(np.uint8), axis=1).sum(axis=1).astype(np.int32)
+    nc = np.unpackbits(nb.view(np.uint8), axis=1).sum(axis=1).astype(np.int32)
+    arrays = (q, qb.view(np.int32), qc, rng.integers(0, 5, b).astype(np.int32), e,
+              nb.view(np.int32), nc, rng.integers(0, 6, n).astype(np.int32),
+              np.array([0.3, 0.45, 0.15, 0.1], np.float32), PRIORITY_MATRIX,
+              rng.uniform(0, 1, (b, n)).astype(np.float32))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def phase_scoring_kernels(dev, err: dict) -> None:
+    """B6 against its plain version (within 1e-5: the dot's f32 sum runs in
+    another order); updates the max abs error in `err`."""
+    from hcrag_tpu_torch.ops import scoring_cuda as sc
+
+    err["batch_relevance"] = 0.0
+    for b, n, reduction, llm in ((256, R_NODES, 0, True), (256, R_NODES, 1, True),
+                                 (1, R_NODES, 0, True), (1, R_NODES - 1, 1, False),
+                                 (3, R_NODES - 1, 0, False)):
+        args = b6_inputs(b, n, b + n + reduction, dev)
+        if not llm:
+            args[-1] = None
+        got = sc.batch_relevance(*args, reduction=reduction)
+        want = sc.batch_relevance_plain(*args, reduction=reduction)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if got.shape != (b, n) or not e <= 1e-5:
+            raise AssertionError(f"B6 b={b} n={n}: max |err| {e} > 1e-5")
+        err["batch_relevance"] = max(err["batch_relevance"], e)
+        log(f"  B6 b={b} n={n} d={DIM} w=8 reduction={reduction} llm={llm}: "
+            f"max |err| {e:.3g}")
+
+
+def brute_force_top_k(emb: np.ndarray, queries: np.ndarray, dev) -> np.ndarray:
+    """The f32 brute-force top-k of the first GATE_QUERIES queries over the
+    host rows `emb`, with ties to the lowest index: row chunks of 250k go
+    to the card, where the products run in full f32 (TF32 is off)."""
+    q = torch.from_numpy(queries[:GATE_QUERIES]).to(dev)
+    best_v = torch.full((q.shape[0], TOP_K), -float("inf"), device=dev)
+    best_i = torch.zeros((q.shape[0], TOP_K), dtype=torch.int64, device=dev)
     chunk = 250_000
-    for lo in range(0, emb_f32.shape[0], chunk):
-        s = q @ emb_f32[lo:lo + chunk].T
+    for lo in range(0, emb.shape[0], chunk):
+        s = q @ torch.from_numpy(emb[lo:lo + chunk]).to(dev).T
         cv, ci = torch.sort(s, dim=1, descending=True, stable=True)
         allv = torch.cat([best_v, cv[:, :TOP_K]], dim=1)
         alli = torch.cat([best_i, ci[:, :TOP_K] + lo], dim=1)
         order = torch.sort(allv, dim=1, descending=True, stable=True).indices[:, :TOP_K]
         best_v, best_i = allv.gather(1, order), alli.gather(1, order)
-    ref = best_i.cpu().numpy()
+    return best_i.cpu().numpy()
+
+
+def recall(ref: np.ndarray, got: np.ndarray) -> float:
+    """recall@k of `got` (its first len(ref) rows) against `ref`."""
     hits = sum(len(set(got[b].tolist()) & set(ref[b].tolist())) for b in range(len(ref)))
     return hits / (len(ref) * TOP_K)
+
+
+def round_to_bf16(emb: np.ndarray) -> None:
+    """Round the host rows to bfloat16 in place (kept as float32: numpy has
+    no bfloat16 of its own), in row chunks."""
+    t = torch.from_numpy(emb)
+    for lo in range(0, emb.shape[0], 1 << 20):
+        t[lo:lo + (1 << 20)] = t[lo:lo + (1 << 20)].to(torch.bfloat16).to(torch.float32)
+
+
+def host_rss_gib() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
 def check_small_against_cpu(dev, label: str, opts: dict, tf32: bool = False) -> None:
@@ -351,7 +476,7 @@ def profile_step(step, card: str, steps: int = 3) -> None:
             f"{100 * dev_us / total:5.1f}%  x{count // steps:<4d} {key[:70]}")
 
 
-def check_result(res, batch: int) -> None:
+def check_result(res, batch: int, n_rows: int) -> None:
     """Finite outputs of the expected shapes, indices in range, scores
     descending."""
     shapes = {
@@ -364,7 +489,7 @@ def check_result(res, batch: int) -> None:
         a = getattr(res, f)
         if a.shape != shape or not np.isfinite(a).all():
             raise AssertionError(f"{f}: shape {a.shape} (want {shape}) or non-finite")
-    if not ((res.top_indices >= 0) & (res.top_indices < N_ROWS)).all():
+    if not ((res.top_indices >= 0) & (res.top_indices < n_rows)).all():
         raise AssertionError("top_indices out of range")
     if not ((res.expanded_counts >= 0) & (res.expanded_counts <= 20)).all():
         raise AssertionError("expanded_counts out of range")
@@ -372,32 +497,66 @@ def check_result(res, batch: int) -> None:
         raise AssertionError("top_scores not descending")
 
 
-def drive(engine, queries: np.ndarray, counted, label: str) -> dict:
-    """One `query_batch` with every launch counter at 0 just before it;
-    returns the counts read just after.  Every kernel in `counted` must
-    have launched."""
+def _wrappers() -> dict:
+    """Every kernel's wrapper, whose `.launches` counts its launches."""
+    from hcrag_tpu_torch.ops import scoring_cuda as sc
     from hcrag_tpu_torch.ops import topk_cuda as tc
 
-    for name in KERNELS:
-        getattr(tc, name).launches = 0
+    return {name: getattr(sc if name == "batch_relevance" else tc, name) for name in KERNELS}
+
+
+def zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+class Record:
+    """What the run keeps for the summary line: each kernel's max error
+    against its plain version, its timings per path, and every path's
+    launch counts."""
+
+    def __init__(self, max_err: dict):
+        self.max_err = max_err
+        self.rows = {name: {} for name in KERNELS}  # name -> path -> numbers
+        self.launches = {}  # path -> name -> count
+
+    def kernel(self, name, path, ms, plain_ms, bound, library_ms=None):
+        bound_ms_, by = bound
+        self.rows[name][path] = dict(
+            launches=self.launches[path][name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms_, bound_by=by, library_ms=library_ms)
+
+    def err(self, name, e):
+        self.max_err[name] = max(self.max_err[name], e)
+
+
+def drive(engine, queries: np.ndarray, counted, label: str, ref: np.ndarray,
+          rec: Record, n_rows: int = N_ROWS, min_recall: float = MIN_RECALL):
+    """One `query_batch` with every launch counter at 0 just before it and
+    read just after; every kernel in `counted` must have launched.  Returns
+    the result."""
+    zero_counts()
     t0 = time.time()
     res = engine.query_batch(queries, top_k=TOP_K, expansion_depth=DEPTH)
     first_s = time.time() - t0
-    launches = {name: getattr(tc, name).launches for name in KERNELS}
+    launches = read_counts()
+    rec.launches[label] = launches
     log(f"[{label}] query_batch B={len(queries)} k={TOP_K} depth={DEPTH}: first "
         f"call {first_s:.2f} s, launches {launches}")
     for name in counted:
         if launches[name] < 1:
             raise AssertionError(f"path {label} never launched {name}")
-    check_result(res, len(queries))
-    bank = engine.d_emb_f32 if engine.d_emb_f32 is not None else engine.d_emb
-    recall = recall_at_k(bank[:N_ROWS], torch.from_numpy(queries).to(bank.device),
-                         res.top_indices)
+    check_result(res, len(queries), n_rows)
+    r = recall(ref, res.top_indices)
     log(f"[{label}] recall@{TOP_K} vs f32 brute force ({GATE_QUERIES} queries): "
-        f"{recall:.4f} (gate {MIN_RECALL})")
-    if recall < MIN_RECALL:
-        raise AssertionError(f"{label}: recall {recall} below {MIN_RECALL}")
-    return launches
+        f"{r:.4f} (gate {min_recall})")
+    if r < min_recall:
+        raise AssertionError(f"{label}: recall {r} below {min_recall}")
+    return res
 
 
 def time_step(engine, dq, label: str, card: str, reps: int) -> float:
@@ -411,14 +570,14 @@ def time_step(engine, dq, label: str, card: str, reps: int) -> float:
     return step_ms
 
 
-def path_mask(n_bank: int, dev) -> torch.Tensor:
+def path_mask(n_bank: int, n_rows: int, dev) -> torch.Tensor:
     mask = torch.zeros(n_bank, dtype=torch.bool, device=dev)
-    mask[:N_ROWS] = True
+    mask[:n_rows] = True
     return mask
 
 
 KERNELS = ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk",
-           "float_packed_tile_topk")
+           "float_packed_tile_topk", "int8_exact_tile_topk", "batch_relevance")
 SOURCES = {
     "int8_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
                        "hcrag_tpu/ops/topk_pallas.py:535"),
@@ -428,106 +587,107 @@ SOURCES = {
                         "hcrag_tpu/ops/topk_pallas.py:36"),
     "float_packed_tile_topk": ("hcrag_tpu_torch/csrc/float_tile_topk.cu",
                                "hcrag_tpu/ops/topk_pallas.py:441"),
+    "int8_exact_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
+                             "hcrag_tpu/ops/topk_pallas.py:633"),
+    "batch_relevance": ("hcrag_tpu_torch/csrc/batch_relevance.cu",
+                        "hcrag_tpu/ops/scoring_pallas.py:38"),
 }
 
 
-def path_int8(index, graph, queries, dev, card, max_err, rows) -> None:
-    """The int8 path: int8 select + f32 rescore, B=8192 (B1, B2)."""
-    from hcrag_tpu_torch.ops import topk_cuda as tc
-    from hcrag_tpu_torch.ops.quantize import quantize_queries
+def engine_ready(label: str, index, graph, dev, batch: int, **opts):
     from hcrag_tpu_torch.query.engine import QueryEngine
 
     t0 = time.time()
-    engine = QueryEngine(
-        index, graph, device=dev, quantize_int8=True, int8_rescore=RESCORE,
-        int8_f32_rescore=True, select_lane_t=1, ell_max_degree=8,
-    )
+    engine = QueryEngine(index, graph, device=dev, ell_max_degree=8, **opts)
     torch.cuda.synchronize()
-    log(f"[int8] engine ready in {time.time() - t0:.1f} s; resolved: "
-        f"{json.dumps(engine.resolved_kernel_config(BATCH, TOP_K))}")
-    launches = drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "int8")
-    check_small_against_cpu(dev, "int8", dict(
-        quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True,
-        select_lane_t=1, ell_max_degree=8), tf32=True)
-    dq = torch.from_numpy(queries).to(dev)
-    time_step(engine, dq, "int8", card, reps=5)
+    log(f"[{label}] engine ready in {time.time() - t0:.1f} s (host set-up); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; resolved: "
+        f"{json.dumps(engine.resolved_kernel_config(batch, TOP_K))}")
+    return engine
 
-    # Each kernel at the path's shapes.
+
+def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
+                         b2_library=False):
+    """B1 and B2 at the path's shapes against their plain versions (bit for
+    bit), then their times beside their plain versions' and bounds."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_queries
+
     bank = engine._bank()
     e8, es = bank["emb_int8"], bank["emb_scale"]
-    n_bank = e8.shape[0]
-    mask = path_mask(n_bank, dev)
+    n_bank, b = e8.shape[0], dq.shape[0]
+    mask = path_mask(n_bank, engine._n_rows, dq.device)
     q8, qs = quantize_queries(dq)
-    vals, idxs = tc.int8_tile_topk(q8, qs, e8, es, mask, TOP_K)
-    err = same_bits(vals, idxs, *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, TOP_K))
-    max_err["int8_tile_topk"] = max(max_err["int8_tile_topk"], err)
-    b, tiles, k = vals.shape
-    pool = tiles * k
-    out_k = RESCORE
-    err = same_bits(*tc.packed_candidate_merge(vals, idxs, out_k),
-                    *tc.packed_candidate_merge_plain(vals, idxs, out_k))
-    max_err["packed_candidate_merge"] = max(max_err["packed_candidate_merge"], err)
-    log("[int8] B1 and B2 at the path's shapes: bit-equal to their plain versions")
-
-    b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, TOP_K), reps=3)
-    b1_plain_ms = cuda_ms(
-        lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, TOP_K), reps=1)
+    k = tc.tile_pick_count(TOP_K, n_bank, 2048, merge_out_k)
+    vals, idxs = tc.int8_tile_topk(q8, qs, e8, es, mask, k)
+    rec.err("int8_tile_topk",
+            same_bits(vals, idxs, *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k)))
+    tiles = vals.shape[1]
+    out_k = min(max(k, merge_out_k), tiles * k)
+    rec.err("packed_candidate_merge",
+            same_bits(*tc.packed_candidate_merge(vals, idxs, out_k),
+                      *tc.packed_candidate_merge_plain(vals, idxs, out_k)))
+    log(f"[{label}] B1 and B2 at the path's shapes: bit-equal to their plain versions")
+    b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, k), reps=b1_reps)
+    b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1)
     b2_ms = cuda_ms(lambda: tc.packed_candidate_merge(vals, idxs, out_k), reps=20)
-    b2_plain_ms = cuda_ms(
-        lambda: tc.packed_candidate_merge_plain(vals, idxs, out_k), reps=5)
-    flat = vals.view(b, pool)
-    b2_lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
-
+    b2_plain_ms = cuda_ms(lambda: tc.packed_candidate_merge_plain(vals, idxs, out_k), reps=3)
+    b2_lib_ms = None
+    if b2_library:
+        flat = vals.view(b, tiles * k)
+        b2_lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
     b1_bytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel()
                 + mask.numel() + 8 * vals.numel())
-    b1_bound, b1_by = bound_ms(2.0 * BATCH * n_bank * DIM, "int8", b1_bytes)
+    b1_bound = bound_ms(2.0 * b * n_bank * DIM, "int8", b1_bytes)
     # B2 reads every value once, gathers out_k indices per query (one
     # 32-byte sector each) and writes (value, index) pairs.
-    b2_bytes = 4 * vals.numel() + 32 * BATCH * out_k + 8 * BATCH * out_k
-    b2_bound, _ = bound_ms(0.0, "int8", b2_bytes)
-    log(f"[int8] B1 int8_tile_topk B={BATCH} N={n_bank} tiles={tiles}: "
-        f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound:.3f} ms "
-        f"by {b1_by}; {card})")
-    log(f"[int8] B2 packed_candidate_merge B={BATCH} pool={pool} out_k={out_k}: "
-        f"{b2_ms:.3f} ms (plain {b2_plain_ms:.3f} ms, torch.topk {b2_lib_ms:.3f} ms, "
-        f"bound {b2_bound:.4f} ms by bytes; {card})")
-    rows["int8_tile_topk"] = dict(
-        launches=launches["int8_tile_topk"], ms=b1_ms, plain_ms=b1_plain_ms,
-        bound_ms=b1_bound, bound_by=b1_by, library_ms=None)
-    rows["packed_candidate_merge"] = dict(
-        launches=launches["packed_candidate_merge"], ms=b2_ms,
-        plain_ms=b2_plain_ms, bound_ms=b2_bound, bound_by="bytes",
-        library_ms=b2_lib_ms)
+    b2_bound = bound_ms(0.0, "int8", 4 * vals.numel() + 32 * b * out_k + 8 * b * out_k)
+    log(f"[{label}] B1 int8_tile_topk B={b} N={n_bank} tiles={tiles} k={k}: "
+        f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
+        f"by {b1_bound[1]}; {card})")
+    lib = f", torch.topk {b2_lib_ms:.3f} ms" if b2_lib_ms is not None else ""
+    log(f"[{label}] B2 packed_candidate_merge B={b} pool={tiles * k} out_k={out_k}: "
+        f"{b2_ms:.3f} ms (plain {b2_plain_ms:.3f} ms{lib}, "
+        f"bound {b2_bound[0]:.4f} ms by bytes; {card})")
+    rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
+    rec.kernel("packed_candidate_merge", label, b2_ms, b2_plain_ms, b2_bound, b2_lib_ms)
 
 
-def path_f2(index, graph, queries, dev, card, max_err, rows) -> None:
+def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
+    """The int8 path: int8 select + f32 rescore, B=8192 (B1, B2)."""
+    opts = dict(quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True,
+                select_lane_t=1)
+    engine = engine_ready("int8", index, graph, dev, BATCH, **opts)
+    drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "int8", ref, rec)
+    check_small_against_cpu(dev, "int8", dict(ell_max_degree=8, **opts), tf32=True)
+    dq = torch.from_numpy(queries).to(dev)
+    time_step(engine, dq, "int8", card, reps=5)
+    int8_kernels_at_path(engine, dq, "int8", card, rec, RESCORE, b2_library=True)
+
+
+def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     """bench.py's bf16 mode: B5 over a bf16 bank, B2, the f32 rescore,
     B=8192."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
-    from hcrag_tpu_torch.query.engine import QueryEngine
     from hcrag_tpu_torch.testing import check_packed_topk
 
-    opts = dict(exact_rescore=RESCORE, select_lane_t=1, ell_max_degree=8)
-    t0 = time.time()
-    engine = QueryEngine(index, graph, device=dev, **opts)
-    torch.cuda.synchronize()
-    log(f"[F2] engine ready in {time.time() - t0:.1f} s; resolved: "
-        f"{json.dumps(engine.resolved_kernel_config(BATCH, TOP_K))}")
-    launches = drive(engine, queries, ("float_packed_tile_topk", "packed_candidate_merge"),
-                     "F2")
-    check_small_against_cpu(dev, "F2", opts)
+    opts = dict(exact_rescore=RESCORE, select_lane_t=1)
+    engine = engine_ready("F2", index, graph, dev, BATCH, **opts)
+    drive(engine, queries, ("float_packed_tile_topk", "packed_candidate_merge"), "F2",
+          ref, rec)
+    check_small_against_cpu(dev, "F2", dict(ell_max_degree=8, **opts))
     dq = torch.from_numpy(queries).to(dev)
     time_step(engine, dq, "F2", card, reps=3)
 
     e = engine.d_emb
     n_bank = e.shape[0]
-    mask = path_mask(n_bank, dev)
+    mask = path_mask(n_bank, N_ROWS, dev)
     qb = dq.to(torch.bfloat16)
     k = tc.tile_pick_count(TOP_K, n_bank, 2048, RESCORE)
     kv, ki = tc.float_packed_tile_topk(qb, e, mask, k)
     pv, pi = tc.float_packed_tile_topk_plain(qb, e, mask, k)
     err, moved = check_packed_topk(kv, ki, pv, pi, qb, e)
-    max_err["float_packed_tile_topk"] = max(max_err["float_packed_tile_topk"], err)
+    rec.err("float_packed_tile_topk", err)
     log(f"[F2] B5 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} of {kv.shape[0] * kv.shape[1]} tiles next to "
         f"a key-quantum boundary)")
@@ -537,17 +697,15 @@ def path_f2(index, graph, queries, dev, card, max_err, rows) -> None:
                           reps=1, warmup=0)
     tiles = -(-n_bank // 2048)
     b5_bytes = 2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * BATCH * tiles * k
-    b5_bound, b5_by = bound_ms(2.0 * BATCH * n_bank * DIM, "bf16", b5_bytes)
+    b5_bound = bound_ms(2.0 * BATCH * n_bank * DIM, "bf16", b5_bytes)
     log(f"[F2] B5 float_packed_tile_topk B={BATCH} N={n_bank} tiles={tiles} bf16: "
-        f"{b5_ms:.3f} ms (plain {b5_plain_ms:.3f} ms, bound {b5_bound:.3f} ms by "
-        f"{b5_by}; {card})")
-    rows["float_packed_tile_topk"] = dict(
-        launches=launches["float_packed_tile_topk"], ms=b5_ms, plain_ms=b5_plain_ms,
-        bound_ms=b5_bound, bound_by=b5_by, library_ms=None)
-    log(f"[F2] B2 launches on this path: {launches['packed_candidate_merge']}")
+        f"{b5_ms:.3f} ms (plain {b5_plain_ms:.3f} ms, bound {b5_bound[0]:.3f} ms by "
+        f"{b5_bound[1]}; {card})")
+    rec.kernel("float_packed_tile_topk", "F2", b5_ms, b5_plain_ms, b5_bound)
+    log(f"[F2] B2 launches on this path: {rec.launches['F2']['packed_candidate_merge']}")
 
 
-def path_f1(index, graph, dev, card, max_err, rows) -> None:
+def path_f1(index, graph, ref, dev, card, rec) -> None:
     """The default engine: B4 over the f32 bank, B=1024, and the host API
     over it."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
@@ -557,12 +715,12 @@ def path_f1(index, graph, dev, card, max_err, rows) -> None:
     t0 = time.time()
     engine = QueryEngine(index, graph, ell_max_degree=8)  # the default: cuda, f32
     torch.cuda.synchronize()
-    log(f"[F1] engine ready in {time.time() - t0:.1f} s; resolved: "
+    log(f"[F1] engine ready in {time.time() - t0:.1f} s (host set-up); resolved: "
         f"{json.dumps(engine.resolved_kernel_config(F1_BATCH, TOP_K))}")
     rng = np.random.default_rng(8)
     queries = rng.standard_normal((F1_BATCH, DIM)).astype(np.float32)
     queries /= np.linalg.norm(queries, axis=1, keepdims=True)
-    launches = drive(engine, queries, ("float_tile_topk",), "F1")
+    drive(engine, queries, ("float_tile_topk",), "F1", ref, rec)
 
     def moves_b4(label, fn):
         before = tc.float_tile_topk.launches
@@ -610,31 +768,248 @@ def path_f1(index, graph, dev, card, max_err, rows) -> None:
 
     e = engine.d_emb
     n_bank = e.shape[0]
-    mask = path_mask(n_bank, dev)
+    mask = path_mask(n_bank, N_ROWS, dev)
     kv, ki = tc.float_tile_topk(dq, e, mask, TOP_K)
     pv, pi = tc.float_tile_topk_plain(dq, e, mask, TOP_K)
     err, moved = check_exact_topk(kv, ki, pv, pi, dq, e, mask)
-    max_err["float_tile_topk"] = max(max_err["float_tile_topk"], err)
+    rec.err("float_tile_topk", err)
     log(f"[F1] B4 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} indices at near-ties)")
     b4_ms = cuda_ms(lambda: tc.float_tile_topk(dq, e, mask, TOP_K), reps=3)
     b4_plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(dq, e, mask, TOP_K), reps=1)
     tiles = -(-n_bank // 2048)
     b4_bytes = 4 * dq.numel() + 4 * e.numel() + mask.numel() + 8 * F1_BATCH * tiles * TOP_K
-    b4_bound, b4_by = bound_ms(2.0 * F1_BATCH * n_bank * DIM, "f32", b4_bytes)
+    b4_bound = bound_ms(2.0 * F1_BATCH * n_bank * DIM, "f32", b4_bytes)
     log(f"[F1] B4 float_tile_topk B={F1_BATCH} N={n_bank} tiles={tiles} f32: "
-        f"{b4_ms:.3f} ms (plain {b4_plain_ms:.3f} ms, bound {b4_bound:.3f} ms by "
-        f"{b4_by}; {card})")
-    rows["float_tile_topk"] = dict(
-        launches=launches["float_tile_topk"], ms=b4_ms, plain_ms=b4_plain_ms,
-        bound_ms=b4_bound, bound_by=b4_by, library_ms=None)
+        f"{b4_ms:.3f} ms (plain {b4_plain_ms:.3f} ms, bound {b4_bound[0]:.3f} ms by "
+        f"{b4_bound[1]}; {card})")
+    rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound)
+
+
+def path_d3(index, graph, queries, ref, dev, card, rec) -> None:
+    """bench.py's BENCH_INT8_MODE="" mode over the bf16-rounded rows: B1,
+    B2, the rescore from the bf16 copy, B=8192."""
+    opts = dict(quantize_int8=True, int8_rescore=RESCORE, select_lane_t=1)
+    engine = engine_ready("D3", index, graph, dev, BATCH, **opts)
+    drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "D3", ref, rec,
+          min_recall=D3_MIN_RECALL)
+    check_small_against_cpu(dev, "D3", dict(ell_max_degree=8, **opts))
+    time_step(engine, torch.from_numpy(queries).to(dev), "D3", card, reps=5)
+
+
+def path_r(dev, card, rec) -> None:
+    """`batch_isRelevant` over R_NODES nodes for the six multi-metric
+    strategies: one launch of B6 per call."""
+    from hcrag_tpu_torch.config import RuntimeConfig
+    from hcrag_tpu_torch.core.types import (
+        DEFAULT_COMPOSITE_WEIGHTS, NodeInput, QueryInput, QueryIntent, ScorerType,
+        scorer_needs_llm,
+    )
+    from hcrag_tpu_torch.ops import scoring_cuda as sc
+    from hcrag_tpu_torch.pipeline import isrelevant as isr
+    from hcrag_tpu_torch.pipeline.llm import LLMClient
+    from hcrag_tpu_torch.utils.bounds import scoring_work
+
+    t0 = time.time()
+    rng = np.random.default_rng(12)
+    words = np.array(["red", "road", "bike", "frame", "manual", "helmet", "chain", "the"])
+    types = ["product", "document", "specification", "annotation", "category", "unknown"]
+    ents = [f"ent{i}" for i in range(256)]  # 256 entities: 8 bit words
+    embs = rng.standard_normal((R_NODES, DIM)).astype(np.float32)
+    n_ents = rng.integers(0, 5, R_NODES)
+    ent_ids = rng.integers(0, 256, (R_NODES, 4))
+    text_ids = rng.integers(0, len(words), (R_NODES, 6))
+    nodes = [NodeInput(" ".join(words[text_ids[i]]), embs[i], {}, types[i % 6],
+                       [ents[j] for j in ent_ids[i, :n_ents[i]]])
+             for i in range(R_NODES)]
+    query = QueryInput("red road bike frame", rng.standard_normal(DIM).astype(np.float32),
+                       ["ent3", "ent17", "ent200"], QueryIntent.PRODUCT_SEARCH)
+    client = LLMClient(RuntimeConfig(llm_base_url=""))
+    scorers = (ScorerType.COMPOSITE, ScorerType.PARALLEL, ScorerType.ROUTER,
+               ScorerType.ROUTER_ALL, ScorerType.ROUTER_TWO_SEM_LLM,
+               ScorerType.ROUTER_TWO_ENT_TYPE)
+    log(f"[R] {R_NODES} nodes (D={DIM}) built in {time.time() - t0:.1f} s (host set-up)")
+    isr.batch_isRelevant(query, nodes, ScorerType.COMPOSITE, client=client)  # warm-up
+
+    zero_counts()
+    got, host_s = {}, {}
+    for st in scorers:
+        before = sc.batch_relevance.launches
+        t0 = time.perf_counter()
+        got[st] = isr.batch_isRelevant(query, nodes, st, client=client)
+        host_s[st] = time.perf_counter() - t0
+        if sc.batch_relevance.launches != before + 1:
+            raise AssertionError(f"R: {st} launched B6 {sc.batch_relevance.launches - before} times")
+    rec.launches["R"] = read_counts()
+    log(f"[R] batch_isRelevant x {len(scorers)} strategies: launches {rec.launches['R']}")
+
+    worst = 0.0
+    for st in scorers:
+        llm = isr._batch_process_with_llm(query, nodes, 10, client) \
+            if scorer_needs_llm(st) else None
+        plain = isr._fused_device_scores(query, nodes, st, DEFAULT_COMPOSITE_WEIGHTS,
+                                         llm=llm, device="cpu")
+        cpu_route = isr.batch_isRelevant(query, nodes, st, client=client, device="cpu")
+        # The two routes on the card from the same judge column, in turns
+        # (fused, unfused, unfused, fused), on the host clock.
+        route_ms = {isr._fused_device_scores: [], isr._unfused_device_scores: []}
+        for fn in (isr._fused_device_scores, isr._unfused_device_scores) * 2:
+            t0 = time.perf_counter()
+            out = fn(query, nodes, st, DEFAULT_COMPOSITE_WEIGHTS, llm=llm, device=dev)
+            route_ms[fn].append((time.perf_counter() - t0) * 1e3)
+            e = float(np.abs(np.subtract(got[st], out)).max())
+            worst = max(worst, e)
+        e = max(worst, float(np.abs(np.subtract(got[st], plain)).max()),
+                float(np.abs(np.subtract(got[st], cpu_route)).max()))
+        if not e <= 1e-5:
+            raise AssertionError(f"R: {st} differs from the plain route by {e}")
+        worst = e
+        fused, unfused = (route_ms[isr._fused_device_scores],
+                          route_ms[isr._unfused_device_scores])
+        log(f"[R]   {st.value}: batch_isRelevant {host_s[st] * 1e3:.2f} ms; from the "
+            f"same judge column, fused route {fused[0]:.2f} / {fused[1]:.2f} ms, "
+            f"unfused route on the card {unfused[0]:.2f} / {unfused[1]:.2f} ms "
+            f"(host clock; {card})")
+    log(f"[R] scores within {worst:.3g} of the plain B6 on the CPU, the CPU's unfused "
+        f"route and both routes on the card (gate 1e-5)")
+    rec.err("batch_relevance", worst)
+    profile_step(lambda: isr.batch_isRelevant(query, nodes, ScorerType.COMPOSITE,
+                                              client=client), card)
+
+    llm = isr._batch_process_with_llm(query, nodes, 10, client)
+    args, reduction = isr._fused_inputs(query, nodes, ScorerType.COMPOSITE,
+                                        DEFAULT_COMPOSITE_WEIGHTS, llm, dev)
+    e = float((sc.batch_relevance(*args, reduction=reduction)
+               - sc.batch_relevance_plain(*args, reduction=reduction)).abs().max())
+    rec.err("batch_relevance", e)
+    ms = cuda_ms(lambda: sc.batch_relevance(*args, reduction=reduction), reps=50)
+    plain_ms = cuda_ms(lambda: sc.batch_relevance_plain(*args, reduction=reduction), reps=20)
+    w = args[1].shape[1]
+    work = scoring_work(1, R_NODES, DIM, w, llm=True)
+    bound = bound_ms(work["ops"], "f32", work["bytes"])
+    log(f"[R] B6 batch_relevance B=1 N={R_NODES} W={w}: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; max |err| {e:.3g}; "
+        f"{card})")
+    rec.kernel("batch_relevance", "R", ms, plain_ms, bound)
+    big = b6_inputs(256, R_NODES, 99, dev)
+    ms256 = cuda_ms(lambda: sc.batch_relevance(*big, reduction=0), reps=20)
+    plain256 = cuda_ms(lambda: sc.batch_relevance_plain(*big, reduction=0), reps=5)
+    work = scoring_work(256, R_NODES, DIM, 8, llm=True)
+    b256 = bound_ms(work["ops"], "f32", work["bytes"])
+    log(f"[R] B6 batch_relevance B=256 N={R_NODES} W=8 (the kernel phase's shape): "
+        f"{ms256:.4f} ms (plain {plain256:.4f} ms, bound {b256[0]:.4f} ms by {b256[1]}; "
+        f"{card})")
+
+
+def path_d1(index, graph, queries, ref, dev, card, rec) -> None:
+    """The 10M one-chip deployment: int8 selection and the rescore from the
+    int8 + residual reconstruction, B=2048; then kernel B3e over its bank
+    through `cosine_top_k_int8(packed_select=False)`."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_queries
+
+    opts = dict(quantize_int8=True, int8_residual=True, int8_rescore=RESCORE,
+                select_lane_t=1)
+    engine = engine_ready("D1", index, graph, dev, D_BATCH, **opts)
+    log(f"[D1] peak host RSS {host_rss_gib():.1f} GiB")
+    drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "D1", ref, rec,
+          n_rows=N_10M)
+    check_small_against_cpu(dev, "D1", dict(ell_max_degree=8, **opts))
+    dq = torch.from_numpy(queries).to(dev)
+    time_step(engine, dq, "D1", card, reps=3)
+    int8_kernels_at_path(engine, dq, "D1", card, rec, RESCORE, b1_reps=2)
+
+    bank = engine._bank()
+    e8, es = bank["emb_int8"], bank["emb_scale"]
+    n_bank = e8.shape[0]
+    mask = path_mask(n_bank, N_10M, dev)
+    zero_counts()
+    v, i = tc.cosine_top_k_int8(dq, e8, es, mask, TOP_K, packed_select=False)
+    torch.cuda.synchronize()
+    rec.launches["D1x"] = read_counts()
+    log(f"[D1x] cosine_top_k_int8(packed_select=False) B={D_BATCH} over D1's bank: "
+        f"launches {rec.launches['D1x']}; recall@{TOP_K} of the exact int8 selection "
+        f"(no rescore) {recall(ref, i.cpu().numpy()):.4f}")
+    if rec.launches["D1x"]["int8_exact_tile_topk"] < 1:
+        raise AssertionError("D1x never launched int8_exact_tile_topk")
+    q8, qs = quantize_queries(dq)
+    kv, ki = tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K)
+    rec.err("int8_exact_tile_topk",
+            same_bits(kv, ki, *tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K)))
+    del kv, ki
+    ms = cuda_ms(lambda: tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K), reps=2)
+    plain_ms = cuda_ms(lambda: tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K),
+                       reps=1)
+    tiles = -(-n_bank // 2048)
+    nbytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel() + mask.numel()
+              + 8 * D_BATCH * tiles * TOP_K)
+    bound = bound_ms(2.0 * D_BATCH * n_bank * DIM, "int8", nbytes)
+    log(f"[D1x] B3e int8_exact_tile_topk B={D_BATCH} N={n_bank} tiles={tiles}: bit-equal "
+        f"to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms by {bound[1]}; {card})")
+    rec.kernel("int8_exact_tile_topk", "D1x", ms, plain_ms, bound)
+
+
+def path_d2(index, graph, queries, ref, dev, card, rec) -> None:
+    """int8-only residency (no rescore) over the bf16-rounded 10M rows:
+    B1 at per-tile k = top_k (B3's k-pass packed contract) and B2,
+    B=2048."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_queries
+
+    opts = dict(quantize_int8=True, int8_only=True, int8_rescore=RESCORE,
+                select_lane_t=1)
+    engine = engine_ready("D2", index, graph, dev, D_BATCH, **opts)
+    res = drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "D2", ref,
+                rec, n_rows=N_10M, min_recall=D2_MIN_RECALL)
+    bank = engine._bank()
+    e8, es = bank["emb_int8"], bank["emb_scale"]
+    mask = path_mask(e8.shape[0], N_10M, dev)
+    q8, qs = quantize_queries(torch.from_numpy(queries[:GATE_QUERIES]).to(dev))
+    pv, pi = tc.packed_candidate_merge_plain(
+        *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, TOP_K), TOP_K)
+    if not (np.array_equal(pi.cpu().numpy(), res.top_indices[:GATE_QUERIES])
+            and np.array_equal(pv.cpu().numpy().view(np.int32),
+                               res.top_scores[:GATE_QUERIES].view(np.int32))):
+        raise AssertionError("D2: the engine's top-10 differs from the plain route's")
+    log(f"[D2] top-{TOP_K} of the {GATE_QUERIES} gate queries equals the plain route's "
+        f"(plain B1 + plain B2 on the card), bits and indices")
+    check_small_against_cpu(dev, "D2", dict(ell_max_degree=8, **opts))
+    dq = torch.from_numpy(queries).to(dev)
+    time_step(engine, dq, "D2", card, reps=3)
+    int8_kernels_at_path(engine, dq, "D2", card, rec, 0, b1_reps=2)
 
 
 def free(label: str) -> None:
+    import gc
+
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"[{label}] engine freed; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"still allocated")
+    log(f"[{label}] freed; {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated on the card")
+
+
+def summary(rec: Record) -> dict:
+    """One entry per kernel: the numbers of the first path that timed it,
+    and every path's."""
+    out = []
+    for name in KERNELS:
+        paths = rec.rows[name]
+        if not paths:
+            raise AssertionError(f"{name} was never timed at a path's shapes")
+        first = next(iter(paths.values()))
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "path": next(iter(paths)),
+            "launches": first["launches"], "max_abs_err": rec.max_err[name],
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "launches_by_path": {path: c[name] for path, c in rec.launches.items()},
+            "by_path": paths,
+        })
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -642,7 +1017,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from hcrag_tpu_torch.ops import _build
-    from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.utils.synthetic import synthetic_setup
 
     dev = torch.device("cuda")
@@ -659,8 +1033,8 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     t0 = time.time()
-    reports = _build.build(tc.KERNEL_SOURCES)
-    log(f"[build] {len(reports)} of {len(tc.KERNEL_SOURCES)} sources built in "
+    reports = _build.build(_build.KERNEL_SOURCES)
+    log(f"[build] {len(reports)} of {len(_build.KERNEL_SOURCES)} sources built in "
         f"{time.time() - t0:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -672,8 +1046,10 @@ def main() -> int:
     max_err = phase_kernels(dev)
     max_err.update(float_tile_topk=0.0, float_packed_tile_topk=0.0)
     phase_float_kernels(dev, max_err)
+    phase_scoring_kernels(dev, max_err)
+    rec = Record(max_err)
 
-    # 4-6. the paths, over one shared index ------------------------------------
+    # 4-7. the paths over one 1M-row index --------------------------------------
     t0 = time.time()
     index, graph = synthetic_setup(N_ROWS, DIM, graph_degree=4)
     log(f"[setup] synthetic index {N_ROWS} x {DIM} + graph built in "
@@ -681,24 +1057,45 @@ def main() -> int:
     rng = np.random.default_rng(7)
     queries = rng.standard_normal((BATCH, DIM)).astype(np.float32)
     queries /= np.linalg.norm(queries, axis=1, keepdims=True)
-    rows: dict = {}
-    path_int8(index, graph, queries, dev, card, max_err, rows)
+    ref = brute_force_top_k(index.emb, queries, dev)
+    path_int8(index, graph, queries, ref, dev, card, rec)
     free("int8")
-    path_f2(index, graph, queries, dev, card, max_err, rows)
+    path_f2(index, graph, queries, ref, dev, card, rec)
     free("F2")
-    path_f1(index, graph, dev, card, max_err, rows)
+    f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
+    f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
+    path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)
     free("F1")
-    log(f"[done] {time.time() - t_start:.1f} s in all")
+    round_to_bf16(index.emb)
+    path_d3(index, graph, queries, ref, dev, card, rec)
+    free("D3")
+    del index, graph
 
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": rows[name]["launches"],
-         "max_abs_err": max_err[name], "ms": rows[name]["ms"],
-         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"]}
-        for name in KERNELS
-    ]}
-    print(json.dumps(summary), flush=True)
+    # 8. relevance scoring --------------------------------------------------
+    path_r(dev, card, rec)
+    free("R")
+
+    # 9-10. the density paths over one 10M-row index ---------------------------
+    t0 = time.time()
+    index, graph = synthetic_setup(N_10M, DIM, graph_degree=4)
+    log(f"[setup] synthetic index {N_10M} x {DIM} + graph built in "
+        f"{time.time() - t0:.1f} s (host); peak host RSS {host_rss_gib():.1f} GiB")
+    d_queries = queries[:D_BATCH].copy()
+    t0 = time.time()
+    ref = brute_force_top_k(index.emb, d_queries, dev)
+    log(f"[setup] f32 brute force of {GATE_QUERIES} queries over {N_10M} rows in "
+        f"{time.time() - t0:.1f} s")
+    path_d1(index, graph, d_queries, ref, dev, card, rec)
+    free("D1")
+    t0 = time.time()
+    round_to_bf16(index.emb)
+    log(f"[setup] {N_10M} rows rounded to bf16 in {time.time() - t0:.1f} s (host)")
+    path_d2(index, graph, d_queries, ref, dev, card, rec)
+    free("D2")
+    log(f"[done] {time.time() - t_start:.1f} s in all; peak host RSS "
+        f"{host_rss_gib():.1f} GiB")
+
+    print(json.dumps(summary(rec)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,9 @@
 arrays) into tensors under the same keys, in the dtypes the port's engine
 keeps: uint32 bitsets travel as int32 words with the same bits, and
 bfloat16 rows keep their bits.  That covers the float banks (an f32 `emb`,
-or a bf16 `emb` beside an f32 `emb_f32`) as well as the int8 ones.
+or a bf16 `emb` beside an f32 `emb_f32`) and the int8 ones: `emb_int8`
+with its `emb_scale`, the residual level `emb_res8` / `emb_res_scale`, and
+a bf16 `emb` beside them (none in int8-only residency).
 """
 
 from __future__ import annotations

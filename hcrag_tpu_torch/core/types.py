@@ -139,6 +139,11 @@ class CompositeWeights:
 
 DEFAULT_COMPOSITE_WEIGHTS = CompositeWeights()
 
+#: Metric column order of every fused-scoring array: semantic similarity,
+#: llm judge, entity match, node-type priority.
+METRIC_ORDER = ("semantic", "llm", "entity", "type")
+NUM_METRICS = len(METRIC_ORDER)
+
 # Reduction modes of the fused scorer.
 REDUCE_WEIGHTED_SUM = 0
 REDUCE_MAX = 1
@@ -175,6 +180,19 @@ def scorer_spec(
     return w, REDUCE_WEIGHTED_SUM
 
 
+def scorer_needs_llm(scorer_type: ScorerType) -> bool:
+    """Whether a strategy reads the (host-computed) LLM-judge column; the
+    others score it as 0.0."""
+    return scorer_type in {
+        ScorerType.COMPOSITE,
+        ScorerType.PARALLEL,
+        ScorerType.ROUTER,
+        ScorerType.ROUTER_ALL,
+        ScorerType.ROUTER_TWO_SEM_LLM,
+        ScorerType.ROUTER_SINGLE_LLM,
+    }
+
+
 #: Edge-type vocabulary of the AdventureWorks property graph.
 EDGE_TYPES: List[str] = [
     "SAME_CATEGORY",
@@ -205,3 +223,16 @@ class QueryInput:
     embeddings: np.ndarray
     entities: List[str]
     intent: QueryIntent
+
+
+@dataclasses.dataclass
+class NodeInput:
+    """A structured node: text, embedding, graph relations, node type and
+    entities."""
+
+    text: str
+    embeddings: np.ndarray
+    graph_relations: Dict
+    node_type: str
+    entities: List[str]
+    score: float = 0.0

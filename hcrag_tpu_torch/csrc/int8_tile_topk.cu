@@ -1,41 +1,58 @@
-// int8_tile_topk — kernel B1 of the port: int8 cosine scores and the exact
-// top-k of every 2048-row index tile under the packed (score | lane) key.
+// int8_tile_topk — kernels B1 and B3 of the port: int8 cosine scores and the
+// exact top-k of every index tile.
 //
-// Replaces `_topk_tile_kernel_int8` (hcrag_tpu/ops/topk_pallas.py), launched
-// by `pallas_cosine_top_k_int8`.  Its contract is the exact per-tile top-k of
-// the packed branch: for query b and row n of tile t
+// Both replace `_topk_tile_kernel_int8` (hcrag_tpu/ops/topk_pallas.py),
+// launched by `pallas_cosine_top_k_int8`.  For query b and row n of tile t
+// the score is
 //
-//   s   = fp32(dot_i32(q[b], e[n])) * q_scale[b] * e_scale[n]
-//         + (mask[n] ? 2.0 : -3.0)                  (in exactly this order)
-//   key = (bits(s) & ~0x7FF) | (2047 - (n - t * tile_n))    as int32
+//   s = fp32(dot_i32(q[b], e[n])) * q_scale[b] * e_scale[n]   (in this order)
 //
-// and the k largest keys of the tile decode to
+// B1, `int8_tile_topk`, computes the contract of the packed branches (the
+// fused two-level one, which approximates it, and B3's k-pass one):
+//
+//   key = (bits(s + (mask[n] ? 2.0 : -3.0)) & ~0x7FF) | (2047 - (n - t * tile_n))
+//
+// as int32, and the k largest keys of the tile decode to
 //   val = float(key & ~0x7FF) - 2.0,  idx = 2047 - (key & 0x7FF) + t * tile_n
 // with a key <= 0 (masked row, row past n, or no row left) decoding to the
 // filler (-1e30, -1).  Keys are unique within a tile, so the result is fully
-// determined and equals the plain PyTorch version bit for bit.  The rescale
-// and shift use __fmul_rn / __fadd_rn (and the build passes --fmad=false):
-// an FMA would change the key bits.
+// determined.
 //
-// What bounds it on an H100: at the main path's shape (B = 8192 queries,
-// N = 1,001,472 rows, D = 384) it does 2*B*N*D = 6.3e12 int8 operations
+// B3e, `int8_exact_tile_topk`, computes the exact branch
+// (`packed_select=False`): the tile's k best rows with mask set by the raw
+// value s (-0.0 counted as +0.0), ties to the lowest row.  The TPU kernel
+// adds -1e30 to masked rows and removes each pick by writing -1e30 over it,
+// so once a tile's valid rows are gone every further slot is
+// (-1e30, t * tile_n).  The order is B4's unique 64-bit word: the
+// order-preserving f32 bits in the high half, 0xFFFFFFFF - row_in_tile in the
+// low half.  Every partial sum of the integer dot stays below 127^2 * 384 <
+// 2^24, so fp32(dot) is exact and both kernels equal their plain PyTorch
+// versions bit for bit.  The rescale and shifts use __fmul_rn / __fadd_rn
+// (and the build passes --fmad=false): an FMA would change the bits.
+//
+// What bounds them on an H100: at the int8 path's shape (B = 8192 queries,
+// N = 1,001,472 rows, D = 384) B1 does 2*B*N*D = 6.3e12 int8 operations
 // (3.2 ms at the 1,979 TOP/s int8 tensor-core peak) and must move ~0.7 GB
-// (the 385 MB bank, the candidates it writes: ~0.2 ms at 3.35 TB/s), so it
-// is bound by operations.  This first version computes the dots with __dp4a
-// on the CUDA cores, not the tensor cores, and so sits far above that bound;
-// wgmma and TMA are the next step.
+// (the 385 MB bank, the candidates it writes: ~0.2 ms at 3.35 TB/s); at the
+// 10M-row density paths (B = 2048, N = 10,000,384) B1 and B3 do 1.57e13
+// (7.9 ms) against a 3.84 GB bank (1.2 ms).  All are bound by operations.
+// This first version computes the dots with __dp4a on the CUDA cores, not
+// the tensor cores, and so sits far above that bound; wgmma and TMA are the
+// next step.
 //
 // Design: one block takes QB = 64 queries and one tile.  The query block
 // stays in shared memory; the tile streams through shared memory in
 // sub-tiles of RB = 64 rows.  256 threads each compute a 4 x 4 block of
-// dots with 16-byte shared loads and __dp4a, write the packed keys to shared
+// dots with 16-byte shared loads and __dp4a, write the keys to shared
 // memory, and then each warp filters the keys of its 8 queries against the
 // current k-th best (a warp ballot) and inserts the few survivors into that
 // query's sorted list in shared memory (tile_select.cuh, shared with B4 and
-// B5).  Blocks are ordered query block fastest, so all query blocks of one
-// tile run together and read the tile from L2.
+// B5).  The two kernels differ only in the key.  Blocks are ordered query
+// block fastest, so all query blocks of one tile run together and read the
+// tile from L2.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tile_select.cuh"
@@ -47,16 +64,65 @@ constexpr int RB = 64;          // index rows per staged sub-tile
 constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 dots each
 constexpr int WARPS = THREADS / 32;
 constexpr int Q_PER_WARP = QB / WARPS;
-constexpr int KEY_STRIDE = 68;  // ints per query row of the key buffer
+constexpr int KEY_STRIDE = 68;  // keys per query row of the key buffer
 constexpr int MAX_K = tile_select::MAX_K;
+constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 
-__device__ __forceinline__ int packed_key(int dot, float qs, float es,
-                                          bool valid, int lane_field) {
-  float s = __fmul_rn(__fmul_rn(__int2float_rn(dot), qs), es);
-  s = __fadd_rn(s, valid ? 2.0f : -3.0f);
-  return (__float_as_int(s) & ~0x7FF) | lane_field;
+__device__ __forceinline__ float rescaled(int dot, float qs, float es) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(dot), qs), es);
 }
 
+// B1's key: the packed (score + 2 | 2047 - lane) int32.  `vs` is 1 for a
+// row with mask set, 0 for a masked row, -1 for a row past n (whose scale
+// and bytes are zero: its key is negative like a masked row's).
+struct PackedKey {
+  using Key = int;
+  __device__ static Key filler() { return 0; }
+  __device__ static Key make(int dot, float qs, float es, int vs, int row) {
+    const float s = __fadd_rn(rescaled(dot, qs, es), vs > 0 ? 2.0f : -3.0f);
+    return (__float_as_int(s) & ~0x7FF) | (2047 - row);
+  }
+  __device__ static void decode(Key key, int tile_base, float* v, int* i) {
+    if (key > 0) {
+      *v = __fsub_rn(__int_as_float(key & ~0x7FF), 2.0f);
+      *i = tile_base + 2047 - (key & 0x7FF);
+    } else {
+      *v = -1e30f;
+      *i = -1;
+    }
+  }
+};
+
+// B3e's key: order-preserving score bits | ~row.  Masked rows and rows past
+// n never enter the list; its empty slots decode to the tile's -1e30 fill.
+struct ExactKey {
+  using Key = long long;
+  __device__ static Key filler() { return LLONG_MIN; }
+  __device__ static Key make(int dot, float qs, float es, int vs, int row) {
+    if (vs <= 0) return LLONG_MIN;
+    const int bits = __float_as_int(__fadd_rn(rescaled(dot, qs, es), 0.0f));
+    const unsigned skey = (unsigned)(bits ^ ((bits >> 31) & 0x7FFFFFFF));
+    return (long long)(((unsigned long long)skey << 32) |
+                       (unsigned long long)(0xFFFFFFFFu - (unsigned)row));
+  }
+  __device__ static void decode(Key key, int tile_base, float* v, int* i) {
+    if (key == LLONG_MIN) {
+      *v = -1e30f;
+      *i = tile_base;
+      return;
+    }
+    const int skey = (int)(key >> 32);
+    *v = __int_as_float(skey ^ ((skey >> 31) & 0x7FFFFFFF));
+    *i = tile_base + (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFll));
+  }
+};
+
+size_t smem_bytes(int d, int k, size_t key_bytes) {
+  return (size_t)(QB + RB) * (d + 16) + key_bytes * (size_t)QB * (KEY_STRIDE + k) +
+         sizeof(float) * (QB + RB) + sizeof(int) * RB;
+}
+
+template <typename K>
 __global__ void __launch_bounds__(THREADS)
 int8_tile_topk_kernel(const int8_t* __restrict__ q,
                       const float* __restrict__ q_scale,
@@ -65,12 +131,13 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
                       const uint8_t* __restrict__ mask,
                       float* __restrict__ out_v, int* __restrict__ out_i,
                       int b, int n, int d, int k, int tile_n, int tiles) {
+  using Key = typename K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
   const int row_bytes = d + 16;  // padded rows spread the shared banks
   int8_t* q_rows = reinterpret_cast<int8_t*>(smem);
   int8_t* e_rows = q_rows + QB * row_bytes;
-  int* keys = reinterpret_cast<int*>(e_rows + RB * row_bytes);
-  int* lists = keys + QB * KEY_STRIDE;
+  Key* keys = reinterpret_cast<Key*>(e_rows + RB * row_bytes);
+  Key* lists = keys + QB * KEY_STRIDE;
   float* qscale_s = reinterpret_cast<float*>(lists + QB * k);
   float* escale_s = qscale_s + QB;
   int* valid_s = reinterpret_cast<int*>(escale_s + RB);
@@ -94,7 +161,7 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
   }
   for (int x = tid; x < QB; x += THREADS)
     qscale_s[x] = q0 + x < b ? q_scale[q0 + x] : 0.0f;
-  for (int x = tid; x < QB * k; x += THREADS) lists[x] = 0;  // filler key
+  for (int x = tid; x < QB * k; x += THREADS) lists[x] = K::filler();
 
   for (int sub = 0; sub < tile_n && tile_base + sub < n; sub += RB) {
     __syncthreads();  // the previous sub-tile's keys and rows are consumed
@@ -109,7 +176,7 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
       const int row = tile_base + sub + tid;
       const bool in = row < n;
       escale_s[tid] = in ? e_scale[row] : 0.0f;
-      valid_s[tid] = in && mask[row] != 0;
+      valid_s[tid] = in ? (mask[row] != 0) : -1;
     }
     __syncthreads();
 
@@ -146,8 +213,7 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int qq = tq * 4 + i, r = tr + 16 * j;
         keys[qq * KEY_STRIDE + r] =
-            packed_key(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r] != 0,
-                       2047 - (sub + r));
+            K::make(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r], sub + r);
       }
     __syncthreads();
 
@@ -158,48 +224,57 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
   for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq) {
     const int gq = q0 + qq;
     if (gq >= b) break;
-    const int* L = lists + qq * k;
+    const Key* L = lists + qq * k;
     for (int j = lane; j < k; j += 32) {
-      const int key = L[j];
       const size_t o = ((size_t)gq * tiles + tile) * k + j;
-      if (key > 0) {
-        out_v[o] = __fsub_rn(__int_as_float(key & ~0x7FF), 2.0f);
-        out_i[o] = tile_base + 2047 - (key & 0x7FF);
-      } else {
-        out_v[o] = -1e30f;
-        out_i[o] = -1;
-      }
+      K::decode(L[j], tile_base, out_v + o, out_i + o);
     }
   }
 }
 
+template <typename K>
+int launch(const void* q, const void* q_scale, const void* e,
+           const void* e_scale, const void* mask, void* out_v, void* out_i,
+           int b, int n, int d, int k, int tile_n, void* stream) {
+  if (b <= 0 || n <= 0 || d <= 0 || d % 16 != 0 || k < 1 || k > MAX_K ||
+      k > tile_n || tile_n % RB != 0 || tile_n > 2048)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (n + tile_n - 1) / tile_n;
+  const size_t smem = smem_bytes(d, k, sizeof(typename K::Key));
+  if (tiles > 65535 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_tile_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((b + QB - 1) / QB, tiles);
+  int8_tile_topk_kernel<K><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)q, (const float*)q_scale, (const int8_t*)e,
+      (const float*)e_scale, (const uint8_t*)mask, (float*)out_v,
+      (int*)out_i, b, n, d, k, tile_n, tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes.  Pointers are device pointers:
+// C entry points, bound with ctypes.  Pointers are device pointers:
 //   q [b, d] int8, q_scale [b] f32, e [n, d] int8, e_scale [n] f32,
 //   mask [n] bool (one byte each), out_v [b, tiles, k] f32,
 //   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n).
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int int8_tile_topk(const void* q, const void* q_scale,
                               const void* e, const void* e_scale,
                               const void* mask, void* out_v, void* out_i,
                               int b, int n, int d, int k, int tile_n,
                               void* stream) {
-  if (b <= 0 || n <= 0 || d <= 0 || d % 16 != 0 || k < 1 || k > MAX_K ||
-      k > tile_n || tile_n % RB != 0 || tile_n > 2048)
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (n + tile_n - 1) / tile_n;
-  const size_t smem = (size_t)(QB + RB) * (d + 16) +
-                      sizeof(int) * (size_t)QB * (KEY_STRIDE + k) +
-                      sizeof(float) * (QB + RB) + sizeof(int) * RB;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_tile_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((b + QB - 1) / QB, tiles);
-  int8_tile_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const float*)q_scale, (const int8_t*)e,
-      (const float*)e_scale, (const uint8_t*)mask, (float*)out_v,
-      (int*)out_i, b, n, d, k, tile_n, tiles);
-  return (int)cudaGetLastError();
+  return launch<PackedKey>(q, q_scale, e, e_scale, mask, out_v, out_i, b, n,
+                           d, k, tile_n, stream);
+}
+
+extern "C" int int8_exact_tile_topk(const void* q, const void* q_scale,
+                                    const void* e, const void* e_scale,
+                                    const void* mask, void* out_v,
+                                    void* out_i, int b, int n, int d, int k,
+                                    int tile_n, void* stream) {
+  return launch<ExactKey>(q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d,
+                          k, tile_n, stream);
 }

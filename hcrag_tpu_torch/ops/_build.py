@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `_kernels_build/lib<name>-<hash>.so` inside the package (a directory the
 repository's `.gitignore` lists), at first use, for `sm_90a`.  The hash
 covers the source, the shared headers (`csrc/*.cuh`) and the flags, so an
-edited source or header is never served a stale library.  Several sources build in parallel: one nvcc process each.
+edited source or header is never served a stale library.  Several sources
+build in parallel: one nvcc process each.
 Nothing here runs at import time, and there is no fallback: a missing nvcc
 or a failed build raises.
 """
@@ -28,6 +29,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "--fmad=false",  # an FMA would change the packed key bits
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
+)
+#: Every source under csrc/: B1 and B3 (int8_tile_topk), B2, B4 and B5
+#: (float_tile_topk), B6 (batch_relevance).
+KERNEL_SOURCES = (
+    "int8_tile_topk", "packed_candidate_merge", "float_tile_topk", "batch_relevance",
 )
 
 _lock = threading.Lock()

@@ -6,7 +6,11 @@ non-supertile branch) and `_merge_tile_candidates`
 
   * `int8_tile_topk` (kernel B1, csrc/int8_tile_topk.cu) — int8 dots,
     rescale, mask and the exact top-k of every index tile under the packed
-    (score | lane) key;
+    (score | lane) key.  It also serves kernel B3's k-pass packed branch,
+    whose contract is the same exact per-tile top-k;
+  * `int8_exact_tile_topk` (kernel B3's exact branch, csrc/int8_tile_topk.cu)
+    — int8 dots and rescale, and the exact top-k of every tile by raw value,
+    ties to the lowest row;
   * `packed_candidate_merge` (kernel B2, csrc/packed_candidate_merge.cu) —
     the top out_k of a packed candidate pool under the packed
     (value | slot-major position) key;
@@ -24,12 +28,12 @@ launches in a plain integer attribute, `<wrapper>.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 
 from hcrag_tpu_torch.ops import _build
-from hcrag_tpu_torch.ops.quantize import quantize_queries
+from hcrag_tpu_torch.ops.quantize import check_exact_matmul, quantize_queries
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 
 NEG_INF = -1e30
@@ -44,15 +48,16 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "int8_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
-    "packed_candidate_merge": (_VP,) * 4 + (_I,) * 4 + (_VP,),
+    "int8_exact_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
+    "packed_candidate_merge": (_VP,) * 5 + (_I,) * 5 + (_VP,),
     "float_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
 }
 _SOURCES = {  # entry point -> csrc/<source>.cu, where the two differ
+    "int8_exact_tile_topk": "int8_tile_topk",
     "float_tile_topk": "float_tile_topk",
     "float_packed_tile_topk": "float_tile_topk",
 }
-KERNEL_SOURCES = ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk")
 
 
 def _kernel(name: str):
@@ -60,20 +65,6 @@ def _kernel(name: str):
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check_exact_matmul() -> None:
-    # The plain versions take their dots as float32 matrix products: int8
-    # values are exact there (|dot| <= 127^2 * 384 < 2^24) and float dots
-    # keep f32 products, but only in full f32 (the TPU kernels pin HIGHEST).
-    if (
-        torch.backends.cuda.matmul.allow_tf32
-        or torch.get_float32_matmul_precision() != "highest"
-    ):
-        raise RuntimeError(
-            "plain dots need full-precision float32 matmuls: "
-            "TF32 / reduced float32 matmul precision is enabled"
-        )
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
@@ -91,8 +82,25 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Kernel B1: per-tile top-k
+# Kernels B1 and B3: per-tile top-k over an int8 bank
 # ---------------------------------------------------------------------------
+def _int8_scores(
+    q8, q_scale, e8, e_scale, tile_n: int, elems: int
+) -> Iterator[Tuple[int, int, torch.Tensor]]:
+    """The plain int8 scores in query chunks of about `elems` elements:
+    yields (lo, hi, s) with s = (fp32(q8[lo:hi] . e8^T) * q_scale) * e_scale,
+    f32 [hi - lo, N], in the kernels' order of rounding."""
+    check_exact_matmul()
+    b, n = q8.shape[0], e8.shape[0]
+    e_f = e8.to(torch.float32)
+    chunk = max(1, elems // (-(-n // tile_n) * tile_n))
+    for lo in range(0, b, chunk):
+        hi = min(b, lo + chunk)
+        s = q8[lo:hi].to(torch.float32) @ e_f.T  # exact integer dots
+        s = s * q_scale[lo:hi, None]
+        yield lo, hi, s * e_scale[None, :]
+
+
 def int8_tile_topk_plain(
     q8: torch.Tensor,
     q_scale: torch.Tensor,
@@ -109,7 +117,6 @@ def int8_tile_topk_plain(
     exact top-k of every `tile_n`-row tile under the packed key; fillers
     (-1e30, -1).  Queries go in chunks that keep the [chunk, N] score
     buffers near 2 GiB."""
-    _check_exact_matmul()
     b = q8.shape[0]
     n = e8.shape[0]
     dev = q8.device
@@ -124,15 +131,9 @@ def int8_tile_topk_plain(
         2047 - torch.arange(tile_n, dtype=torch.int32, device=dev)
     ).repeat(tiles)
     base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
-    e_f = e8.to(torch.float32)
     out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    chunk = max(1, (1 << 29) // (tiles * tile_n))
-    for lo in range(0, b, chunk):
-        hi = min(b, lo + chunk)
-        s = q8[lo:hi].to(torch.float32) @ e_f.T  # exact integer dots
-        s = s * q_scale[lo:hi, None]
-        s = s * e_scale[None, :]
+    for lo, hi, s in _int8_scores(q8, q_scale, e8, e_scale, tile_n, 1 << 29):
         s = s + offs[None, :]
         bits = s.view(torch.int32) & ~LANE_MASK
         if pad:
@@ -144,6 +145,46 @@ def int8_tile_topk_plain(
         idx = 2047 - (top & LANE_MASK) + base
         out_v[lo:hi] = torch.where(valid, val, NEG_INF)
         out_i[lo:hi] = torch.where(valid, idx, -1)
+    return out_v, out_i
+
+
+def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n):
+    """Check the operands of kernel B1 or B3e and launch it."""
+    _require_cuda(q8, "q8")
+    b, d = q8.shape
+    n = e8.shape[0]
+    dev = q8.device
+    _check(q8, "q8", torch.int8, (b, d), dev)
+    _check(q_scale, "q_scale", torch.float32, (b,), dev)
+    _check(e8, "e8", torch.int8, (n, d), dev)
+    _check(e_scale, "e_scale", torch.float32, (n,), dev)
+    _check(mask, "mask", torch.bool, (n,), dev)
+    if b == 0 or n == 0:
+        raise ValueError(f"{name} needs at least one query and one row")
+    if d % 16 or q8.data_ptr() % 16 or e8.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte multiples on 16-byte boundaries")
+    if tile_n % 64 or not 64 <= tile_n <= 2048:
+        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
+    if not 1 <= k <= min(MAX_TILE_K, tile_n):
+        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+    tiles = -(-n // tile_n)
+    # Query and row blocks, key buffer and lists, scales and row flags
+    # (csrc/int8_tile_topk.cu).
+    smem = 128 * (d + 16) + key_bytes * 64 * (68 + k) + 4 * (64 + 64 + 64)
+    if smem > _SMEM_LIMIT or tiles > 65535:
+        raise ValueError(
+            f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
+            f"(limit {_SMEM_LIMIT}) or {tiles} tiles exceed 65535"
+        )
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    err = _kernel(name)(
+        q8.data_ptr(), q_scale.data_ptr(), e8.data_ptr(), e_scale.data_ptr(),
+        mask.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        b, n, d, k, tile_n, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out_v, out_i
 
 
@@ -160,38 +201,56 @@ def int8_tile_topk(
     `int8_tile_topk_plain` for the contract)."""
     if q8.device.type == "cpu":
         return int8_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, tile_n)
-    _require_cuda(q8, "q8")
-    b, d = q8.shape
-    n = e8.shape[0]
-    dev = q8.device
-    _check(q8, "q8", torch.int8, (b, d), dev)
-    _check(q_scale, "q_scale", torch.float32, (b,), dev)
-    _check(e8, "e8", torch.int8, (n, d), dev)
-    _check(e_scale, "e_scale", torch.float32, (n,), dev)
-    _check(mask, "mask", torch.bool, (n,), dev)
-    if b == 0 or n == 0:
-        raise ValueError("int8_tile_topk needs at least one query and one row")
-    if d % 16 or q8.data_ptr() % 16 or e8.data_ptr() % 16:
-        raise ValueError("rows must be 16-byte multiples on 16-byte boundaries")
-    if tile_n % 64 or not 64 <= tile_n <= 2048:
-        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
-    if not 1 <= k <= min(MAX_TILE_K, tile_n):
-        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
-    tiles = -(-n // tile_n)
-    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    err = _kernel("int8_tile_topk")(
-        q8.data_ptr(), q_scale.data_ptr(), e8.data_ptr(), e_scale.data_ptr(),
-        mask.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        b, n, d, k, tile_n, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"int8_tile_topk launch failed: CUDA error {err}")
+    out = _int8_launch("int8_tile_topk", 4, q8, q_scale, e8, e_scale, mask, k, tile_n)
     int8_tile_topk.launches += 1
-    return out_v, out_i
+    return out
 
 
 int8_tile_topk.launches = 0
+
+
+def int8_exact_tile_topk_plain(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B3e (same contract, same bits).
+
+    Operands as `int8_tile_topk_plain`.  Every `tile_n`-row tile's k best
+    rows among those with mask set, by the raw f32 value
+    (fp32(dot) * q_scale) * e_scale descending (-0.0 counts as +0.0), ties
+    to the lowest row; slots left when a tile has fewer than k valid rows
+    hold (-1e30, the tile's first row), as B4's do."""
+    b, n = q8.shape[0], e8.shape[0]
+    scores = _int8_scores(q8, q_scale, e8, e_scale, tile_n, 1 << 28)
+    return _exact_tile_select(scores, mask, b, n, k, tile_n)
+
+
+def int8_exact_tile_topk(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B3e for CUDA tensors, its plain version for CPU tensors (see
+    `int8_exact_tile_topk_plain` for the contract)."""
+    if q8.device.type == "cpu":
+        return int8_exact_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, tile_n)
+    out = _int8_launch(
+        "int8_exact_tile_topk", 8, q8, q_scale, e8, e_scale, mask, k, tile_n
+    )
+    int8_exact_tile_topk.launches += 1
+    return out
+
+
+int8_exact_tile_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +285,27 @@ def packed_candidate_merge_plain(
     )
 
 
+# B2 selects in chunks of whole tiles whose 4-byte keys fit one block's
+# shared memory (less 8 warps' 8-byte bests); with more than one chunk, a
+# second pass merges the chunks' 8-byte winners (csrc/packed_candidate_merge.cu).
+_MERGE_KEY_BYTES = _SMEM_LIMIT - 64
+_MERGE_WORD_BYTES = 8
+
+
+def merge_chunks(tiles: int, k: int) -> Tuple[int, int]:
+    """(tiles per chunk, chunks) of kernel B2 over a [tiles, k] pool: the
+    fewest chunks whose keys fit one block (58,096 keys), with their tiles
+    spread evenly."""
+    chunks = -(-tiles // max(1, _MERGE_KEY_BYTES // (4 * k)))
+    return -(-tiles // chunks), chunks
+
+
 def packed_candidate_merge(
     v: torch.Tensor, i: torch.Tensor, out_k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B2 for CUDA tensors, its plain version for CPU tensors (see
-    `packed_candidate_merge_plain` for the contract)."""
+    `packed_candidate_merge_plain` for the contract).  A pool of any size:
+    past one block's shared memory it selects in chunks (`merge_chunks`)."""
     if v.device.type == "cpu":
         return packed_candidate_merge_plain(v, i, out_k)
     _require_cuda(v, "v")
@@ -241,13 +316,18 @@ def packed_candidate_merge(
     _check(i, "i", torch.int32, (b, tiles, k), dev)
     if b == 0 or not 1 <= out_k <= c:
         raise ValueError(f"need b >= 1 and 1 <= out_k <= {c}, got b={b}, out_k={out_k}")
-    if 8 * c > 227 * 1024:
-        raise ValueError(f"candidate pool of {c} does not fit one block's shared memory")
+    chunk_tiles, chunks = merge_chunks(tiles, k)
+    if _MERGE_WORD_BYTES * chunks * out_k > _MERGE_KEY_BYTES:
+        raise ValueError(f"{chunks} chunks x out_k={out_k} do not fit one block's "
+                         "shared memory")
     out_v = torch.empty((b, out_k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, out_k), dtype=torch.int32, device=dev)
+    words = (torch.empty((b, chunks, out_k), dtype=torch.int64, device=dev)
+             if chunks > 1 else None)
     err = _kernel("packed_candidate_merge")(
         v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        b, tiles, k, out_k, torch.cuda.current_stream(dev).cuda_stream,
+        None if words is None else words.data_ptr(), b, tiles, k, out_k,
+        chunk_tiles, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"packed_candidate_merge launch failed: CUDA error {err}")
@@ -265,7 +345,7 @@ def _float_tiles(q, e, mask, tile_n, packed):
     """The plain B4's and B5's float dots, in query chunks that keep the
     [chunk, N] buffers near 2 GiB: yields (lo, hi, s) with s = q[lo:hi] . e^T
     (B5: plus 2 where the mask is set, -3 where not), f32 [hi - lo, N]."""
-    _check_exact_matmul()
+    check_exact_matmul()
     b, n = q.shape[0], e.shape[0]
     dev = q.device
     offs = torch.where(
@@ -278,6 +358,39 @@ def _float_tiles(q, e, mask, tile_n, packed):
         hi = min(b, lo + chunk)
         s = q[lo:hi].to(torch.float32) @ e_f.T
         yield lo, hi, (s + offs[None, :] if packed else s)
+
+
+def _exact_tile_select(scores, mask, b: int, n: int, k: int, tile_n: int):
+    """The exact per-tile top-k of B4 and B3e over score chunks (lo, hi, s
+    [hi - lo, N] f32): (vals [b, tiles, k] f32, idx [b, tiles, k] int32) by
+    value descending, ties to the lowest row, fill (-1e30, tile's first
+    row)."""
+    dev = mask.device
+    tiles = -(-n // tile_n)
+    pad = tiles * tile_n - n
+    # A unique int64 word per row: order-preserving score bits, then
+    # 2^32 - 1 - row_in_tile, so a plain max orders it.
+    low = (2**32 - 1 - torch.arange(tile_n, dtype=torch.int64, device=dev)).repeat(
+        tiles
+    )[:n]
+    base = (torch.arange(tiles, dtype=torch.int64, device=dev) * tile_n)[:, None]
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    for lo, hi, s in scores:
+        bits = (s + 0.0).view(torch.int32)  # -0.0 ties with +0.0
+        skey = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+        word = torch.where(mask, skey.to(torch.int64) * 2**32 + low, _INT64_MIN)
+        if pad:
+            word = torch.nn.functional.pad(word, (0, pad), value=_INT64_MIN)
+        top = word.view(hi - lo, tiles, tile_n).topk(k, dim=2).values
+        valid = top != _INT64_MIN
+        hi32 = torch.div(top, 2**32, rounding_mode="floor")
+        row = 2**32 - 1 - (top - hi32 * 2**32)
+        sk = hi32.to(torch.int32)
+        val = (sk ^ ((sk >> 31) & 0x7FFFFFFF)).view(torch.float32)
+        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
+        out_i[lo:hi] = torch.where(valid, row + base, base).to(torch.int32)
+    return out_v, out_i
 
 
 def float_tile_topk_plain(
@@ -294,33 +407,8 @@ def float_tile_topk_plain(
     than k valid rows hold (-1e30, the tile's first row): the Pallas
     kernel's repeated picks of its first column once every column is at
     -1e30."""
-    b, n = q.shape[0], e.shape[0]
-    dev = q.device
-    tiles = -(-n // tile_n)
-    pad = tiles * tile_n - n
-    # A unique int64 word per row: order-preserving score bits, then
-    # 2^32 - 1 - row_in_tile, so a plain max orders it.
-    low = (2**32 - 1 - torch.arange(tile_n, dtype=torch.int64, device=dev)).repeat(
-        tiles
-    )[:n]
-    base = (torch.arange(tiles, dtype=torch.int64, device=dev) * tile_n)[:, None]
-    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    for lo, hi, s in _float_tiles(q, e, mask, tile_n, packed=False):
-        bits = (s + 0.0).view(torch.int32)  # -0.0 ties with +0.0
-        skey = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-        word = torch.where(mask, skey.to(torch.int64) * 2**32 + low, _INT64_MIN)
-        if pad:
-            word = torch.nn.functional.pad(word, (0, pad), value=_INT64_MIN)
-        top = word.view(hi - lo, tiles, tile_n).topk(k, dim=2).values
-        valid = top != _INT64_MIN
-        hi32 = torch.div(top, 2**32, rounding_mode="floor")
-        row = 2**32 - 1 - (top - hi32 * 2**32)
-        sk = hi32.to(torch.int32)
-        val = (sk ^ ((sk >> 31) & 0x7FFFFFFF)).view(torch.float32)
-        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
-        out_i[lo:hi] = torch.where(valid, row + base, base).to(torch.int32)
-    return out_v, out_i
+    scores = _float_tiles(q, e, mask, tile_n, packed=False)
+    return _exact_tile_select(scores, mask, q.shape[0], e.shape[0], k, tile_n)
 
 
 def float_packed_tile_topk_plain(
@@ -435,7 +523,8 @@ float_packed_tile_topk.launches = 0
 # ---------------------------------------------------------------------------
 def uses_packed_merge(tiles: int, k: int, merge_k: int) -> bool:
     """Whether the merge of `tiles` x `k` candidates goes through kernel B2:
-    pools of >= 4096 candidates with out_k <= 128."""
+    pools of >= 4096 candidates with out_k <= 128, as
+    `_merge_tile_candidates` routes them."""
     out_k = min(max(k, merge_k), tiles * k)
     return out_k <= MAX_TILE_K and tiles * k >= PACKED_MERGE_MIN_POOL
 
@@ -466,6 +555,16 @@ def tile_pick_count(top_k: int, n: int, tile_n: int, merge_k: int) -> int:
     return k
 
 
+def _check_tile_k(top_k: int, n: int) -> int:
+    k = min(top_k, n)
+    if k > MAX_TILE_K:
+        raise ValueError(
+            f"top_k={top_k} over {n} rows: per-tile selection keeps at most "
+            f"{MAX_TILE_K} candidates (ROADMAP.md A6d)"
+        )
+    return k
+
+
 def cosine_top_k_int8(
     query_emb: torch.Tensor,
     e_int8: torch.Tensor,
@@ -475,22 +574,33 @@ def cosine_top_k_int8(
     *,
     tile_n: int = 2048,
     merge_k: int = 0,
+    packed_select: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused int8 cosine + top-k of normalized queries [B, D] over an int8
-    index [N, D] with row scales [N] and a row filter [N] bool.
+    index [N, D] with row scales [N] and a row filter [N] bool; the
+    counterpart of `pallas_cosine_top_k_int8` without supertiles.
 
-    The queries are quantized per row, kernel B1 keeps the exact top-k of
-    every `tile_n`-row tile, and the merge keeps the best max(top_k,
-    merge_k) of the pool.  Surplus slots are (-1e30, -1) fillers.  Values
-    carry the packed key's 2^-11 quantization; the engine's exact f32
-    rescore follows.  Returns (values [B, m] f32, indices [B, m] int32)."""
+    The queries are quantized per row.  `packed_select=True` (every engine
+    mode): kernel B1 keeps the exact top-k of every `tile_n`-row tile under
+    the packed key — the contract of both the fused two-level branch (which
+    approximates it) and the k-pass branch — with the per-tile pick count
+    raised when the tiles are too few to cover merge_k; the merge keeps the
+    best max(top_k, merge_k) of the pool, through kernel B2 for pools of
+    >= 4096.  Values carry the packed key's 2^-11 quantization; surplus
+    slots are (-1e30, -1) fillers.  `packed_select=False`: kernel B3e keeps
+    every tile's exact top-k by raw value (ties to the lowest row) and a
+    stable merge keeps the global top max(top_k, merge_k) by (value desc,
+    index asc); filtered rows come back at -1e30.  Returns (values [B, m]
+    f32, indices [B, m] int32)."""
     n = e_int8.shape[0]
-    k = tile_pick_count(top_k, n, tile_n, merge_k)
+    k = _check_tile_k(top_k, n)
     qi, qs = quantize_queries(query_emb.to(torch.float32))
-    vals, idxs = int8_tile_topk(
-        qi, qs, e_int8, e_scale, valid_mask, k, tile_n=tile_n
-    )
-    return merge_tile_candidates(vals, idxs, merge_k)
+    if packed_select:
+        k = tile_pick_count(top_k, n, tile_n, merge_k)
+        vals, idxs = int8_tile_topk(qi, qs, e_int8, e_scale, valid_mask, k, tile_n)
+        return merge_tile_candidates(vals, idxs, merge_k)
+    vals, idxs = int8_exact_tile_topk(qi, qs, e_int8, e_scale, valid_mask, k, tile_n)
+    return merge_tile_candidates(vals, idxs, merge_k, packed=False)
 
 
 def cosine_top_k(
@@ -517,12 +627,7 @@ def cosine_top_k(
     kernel B2 for pools of >= 4096.  Surplus slots are (-1e30, -1) fillers.
     Returns (values [B, m] f32, indices [B, m] int32)."""
     n = index_emb.shape[0]
-    k = min(top_k, n)
-    if k > MAX_TILE_K:
-        raise ValueError(
-            f"top_k={top_k} over {n} rows: per-tile selection keeps at most "
-            f"{MAX_TILE_K} candidates (ROADMAP.md A6d)"
-        )
+    k = _check_tile_k(top_k, n)
     q = query_emb.to(
         torch.bfloat16 if index_emb.dtype == torch.bfloat16 else torch.float32
     )

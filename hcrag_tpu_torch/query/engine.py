@@ -1,16 +1,22 @@
 """QueryEngine — the batched query step and its host API in PyTorch.
 
 Counterpart of `hcrag_tpu/query/engine.py` on its TPU (Pallas) route, in
-three residency modes:
+its residency modes:
 
   * float, the default: the index's own f32 (or bf16) bank, selected
     exactly by kernel B4 with no rescore;
   * float + `exact_rescore=m` over an f32 index: a bf16 selection bank
     through kernel B5, the merge (kernel B2 for large pools), and an exact
     f32 rescore of the m candidates;
-  * int8 + f32 rescore (`quantize_int8=True`, `int8_rescore=m`,
-    `int8_f32_rescore=True`, `bench.py`'s configuration): kernels B1 and B2,
-    then the f32 rescore.
+  * int8 (`quantize_int8=True`): an int8 selection bank through kernel B1
+    (the exact per-tile top-k under the packed key) and the merge (B2 for
+    large pools), then, with `int8_rescore=m`, an exact rescore of the m
+    candidates from the f32 rows (`int8_f32_rescore`, over an f32 index:
+    `bench.py`'s default), from a bf16 copy of the rows, or from the
+    int8 + int8-residual reconstruction (`int8_residual`: 10M rows on one
+    card).  `int8_only` keeps no float copy and, without the residual, no
+    rescore: its selection is the k-pass packed branch of kernel B3, whose
+    contract B1 computes at per-tile k = top_k.
 
 One call of the step runs, in order: the selection above; the relevance
 metrics on the top-k rows (semantic, entity bitset popcount, intent x type
@@ -23,8 +29,8 @@ runs the selection alone; `find_similar_content`, `process_query` and
 The selections are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
 PyTorch on the engine's device.  Its f32 dot products are elementwise
 products and sums, so no TF32 / `float32_matmul_precision` setting changes
-them (the JAX engine pins `Precision.HIGHEST`).  The other residency modes
-of the JAX engine raise NotImplementedError naming their ROADMAP.md item.
+them (the JAX engine pins `Precision.HIGHEST`).  Supertile selection
+(`pallas_super > 1`) raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ from hcrag_tpu_torch.ingest.entities import (
 )
 from hcrag_tpu_torch.models.embedder import embedder_from_index
 from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
-from hcrag_tpu_torch.ops.quantize import quantize_rows
+from hcrag_tpu_torch.ops.quantize import quantize_bank
 from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 from hcrag_tpu_torch.ops.topk_cuda import (
@@ -139,43 +145,42 @@ class QueryEngine:
                 f"exactly, so no per-lane depth applies (got {select_lane_t})"
             )
         host_dtype = np.asarray(index.emb).dtype
-        if quantize_int8:
-            if int8_only or int8_residual or int8_rescore <= 0:
-                raise NotImplementedError(
-                    "int8-only and int8-residual modes need the k-pass kernel "
-                    "B3 (ROADMAP.md B3)"
-                )
-            if not int8_f32_rescore:
-                raise NotImplementedError(
-                    "the bf16 rescore source of the int8 mode is not ported "
-                    "yet (ROADMAP.md A6c)"
-                )
-            if host_dtype != np.float32:
-                raise NotImplementedError(
-                    "the f32 rescore bank needs a float32 index (ROADMAP.md A6c)"
-                )
-        elif host_dtype != np.float32 and host_dtype.name != "bfloat16":
+        if not quantize_int8 and host_dtype != np.float32 and host_dtype.name != "bfloat16":
             raise ValueError(
                 f"float residency needs a float32 or bfloat16 index, got {host_dtype}"
-            )
-        # Supertiles serve the rescored (packed) selections only.
-        if pallas_super > 1 and (quantize_int8 or exact_rescore > 0):
-            raise NotImplementedError(
-                "supertile selection needs kernel B7 (ROADMAP.md B7)"
             )
         self.device = resolve_device(device)
         self.index = index
         self.graph = graph
         self._embedder = embedder
+        # The JAX engine's flag rules: the residual implies int8-only
+        # residency; int8-only without it has no rescore source; the f32
+        # rescore needs the float copy (and is dropped below for a non-f32
+        # index).
         self.quantize_int8 = bool(quantize_int8)
-        self.int8_rescore = int(int8_rescore) if quantize_int8 else 0
+        self.int8_residual = bool(int8_residual) and self.quantize_int8
+        self.int8_only = bool(int8_only) or self.int8_residual
+        self.int8_rescore = (
+            max(0, int(int8_rescore))
+            if self.quantize_int8 and (not self.int8_only or self.int8_residual)
+            else 0
+        )
+        self.int8_f32_rescore = (
+            bool(int8_f32_rescore) and self.quantize_int8 and not self.int8_only
+        )
         #: Float path: the oversample rescored from an f32 bank (0 = off;
         #: dropped to 0 below when the host index is not f32).
         self.exact_rescore = 0 if quantize_int8 else max(0, int(exact_rescore))
+        # Supertiles serve the rescored (packed) selections only.
+        if pallas_super > 1 and (self.int8_rescore > 0 or self.exact_rescore > 0):
+            raise NotImplementedError(
+                "supertile selection needs kernel B7 (ROADMAP.md B7)"
+            )
 
         put = self._put
         self._n_rows = np.asarray(index.emb).shape[0]
-        self._init_emb_banks(self._padded_host_emb())
+        self._n_bank = -(-self._n_rows // TILE_N) * TILE_N
+        self._init_emb_banks(np.asarray(index.emb))
         self.d_type_ids = put(index.type_ids.astype(np.int32))
         self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
         self.d_counts = put(index.entity_counts.astype(np.int32))
@@ -218,33 +223,48 @@ class QueryEngine:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return _tensor(a).to(self.device)
 
-    def _padded_host_emb(self) -> np.ndarray:
-        """The host index padded with zero rows to a whole number of tiles;
-        pad rows are masked out of every selection."""
-        emb_host = np.asarray(self.index.emb)
-        mult = TILE_N
-        if emb_host.shape[0] % mult:
-            pad = mult - emb_host.shape[0] % mult
-            emb_host = np.pad(emb_host, ((0, pad), (0, 0)))
-        return emb_host
+    def _put_rows(self, a: np.ndarray) -> torch.Tensor:
+        """Host rows [N, D] on the device, padded with zero rows to a whole
+        number of tiles; pad rows are masked out of every selection."""
+        t = self._put(a)
+        pad = self._n_bank - t.shape[0]
+        return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
     def _init_emb_banks(self, emb_host: np.ndarray) -> None:
         """The selection bank, the bank expanded-node scoring gathers from
-        (`d_emb`), and the f32 rescore bank where the mode has one."""
-        if self.quantize_int8:
-            q8, scale = quantize_rows(emb_host)
-            self.d_emb_int8 = self._put(q8)
-            self.d_emb_scale = self._put(scale)
-        if self.quantize_int8 or (self.exact_rescore and emb_host.dtype == np.float32):
-            # bf16 rows for selection (float) and expanded-node scoring; the
-            # exact f32 rows of only the merged candidates are rescored.
-            emb_f32 = self._put(emb_host)
-            self.d_emb = emb_f32.to(torch.bfloat16)
-            self.d_emb_f32 = emb_f32
+        (`d_emb`; none in int8-only residency, whose rows are dequantized
+        from the int8 banks), and the mode's rescore bank."""
+        put = self._put_rows
+        self.d_emb_int8 = self.d_emb_scale = None
+        self.d_emb_res8 = self.d_emb_res_scale = None
+        self.d_emb_f32 = None
+        if not self.quantize_int8:
+            if self.exact_rescore and emb_host.dtype == np.float32:
+                # bf16 rows for selection; the exact f32 rows of only the
+                # merged candidates are rescored.
+                self.d_emb_f32 = put(emb_host)
+                self.d_emb = self.d_emb_f32.to(torch.bfloat16)
+            else:
+                self.exact_rescore = 0  # needs an f32 source to rescore
+                self.d_emb = put(emb_host)
+            return
+        # Quantized on the device, chunk by chunk: no host copy of the
+        # int8 banks, and the pad rows come out as zero rows.
+        banks = quantize_bank(
+            emb_host, self.device, self._n_bank, residual=self.int8_residual
+        )
+        self.d_emb_int8, self.d_emb_scale = banks[:2]
+        if self.int8_residual:
+            self.d_emb_res8, self.d_emb_res_scale = banks[2:]
+        if emb_host.dtype != np.float32:
+            self.int8_f32_rescore = False  # needs an f32 source
+        if self.int8_only:
+            self.d_emb = None
+        elif self.int8_f32_rescore:
+            self.d_emb_f32 = put(emb_host)
+            self.d_emb = self.d_emb_f32.to(torch.bfloat16)
         else:
-            self.exact_rescore = 0  # needs an f32 source to rescore
-            self.d_emb = self._put(emb_host)
-            self.d_emb_f32 = None
+            self.d_emb = put(emb_host).to(torch.bfloat16)
 
     def _bank(self) -> Dict[str, torch.Tensor]:
         """The device tensors of the index and graph, under the keys of the
@@ -254,13 +274,17 @@ class QueryEngine:
             "bits": self.d_bits,
             "counts": self.d_counts,
             "graph_ids": self.d_graph_ids,
-            "emb": self.d_emb,
         }
+        if self.d_emb is not None:
+            bank["emb"] = self.d_emb
         if self.d_emb_f32 is not None:
             bank["emb_f32"] = self.d_emb_f32
         if self.quantize_int8:
             bank["emb_int8"] = self.d_emb_int8
             bank["emb_scale"] = self.d_emb_scale
+        if self.d_emb_res8 is not None:
+            bank["emb_res8"] = self.d_emb_res8
+            bank["emb_res_scale"] = self.d_emb_res_scale
         if self.d_neighbors is not None:
             bank["neighbors"] = self.d_neighbors
             bank["g_type_ids"] = self.d_g_type_ids
@@ -268,8 +292,21 @@ class QueryEngine:
         return bank
 
     def _gather_emb_rows(self, indices: torch.Tensor, bank) -> torch.Tensor:
-        """Embedding rows of the `emb` bank at arbitrary indices ([..., D])."""
-        return bank["emb"][indices]
+        """Embedding rows at arbitrary indices ([..., D]): the `emb` bank's,
+        or, in int8-only residency, the dequantized q8 * s (+ r8 * rs with
+        the residual bank) in f32."""
+        if "emb" in bank:
+            return bank["emb"][indices]
+        rows = (
+            bank["emb_int8"][indices].to(torch.float32)
+            * bank["emb_scale"][indices][..., None]
+        )
+        if "emb_res8" in bank:
+            rows = rows + (
+                bank["emb_res8"][indices].to(torch.float32)
+                * bank["emb_res_scale"][indices][..., None]
+            )
+        return rows
 
     # ------------------------------------------------------------------
     # Selection
@@ -277,7 +314,11 @@ class QueryEngine:
     def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
         """The mode's selection kernel + merge over the bank: (values
         [B, m], row indices [B, m]) with m = max(top_k, fetch_k) candidates;
-        no rescore here."""
+        no rescore here.  An int8 bank takes the packed selection in every
+        mode: with a rescore it stands for the JAX engine's fused two-level
+        branch (whose exact contract it computes), without one for the
+        k-pass branch; the calls differ only in merge_k, hence in the
+        per-tile pick count and the merge's out_k."""
         m = max(top_k, fetch_k)
         merge_k = m if m > top_k else 0
         sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
@@ -297,19 +338,24 @@ class QueryEngine:
         )
 
     def _rescore_m(self) -> int:
-        """Oversample of the exact f32 rescore (0 = off)."""
+        """Oversample of the exact rescore (0 = off)."""
         return self.int8_rescore if self.quantize_int8 else self.exact_rescore
 
     def _topk_impl(self, q_emb, type_mask, top_k: int, bank):
         """Selection of the top_k (or, with a rescore, of the m best
-        candidates, then their exact f32 rescore down to top_k)."""
+        candidates, then their exact f32 rescore down to top_k).  The
+        rescore reads the f32 bank where there is one, else the rows
+        `_gather_emb_rows` gives (the bf16 copy, or the int8 + residual
+        reconstruction)."""
         m = self._rescore_m()
         v, i = self._local_select(q_emb, bank, type_mask, top_k, max(top_k, m))
         if not m:
             return v, i
-        return exact_rescore(
-            q_emb, v, i, lambda ix: bank["emb_f32"][ix], top_k
-        )
+        if "emb_f32" in bank:
+            rows_fn = lambda ix: bank["emb_f32"][ix]  # noqa: E731
+        else:
+            rows_fn = lambda ix: self._gather_emb_rows(ix, bank)  # noqa: E731
+        return exact_rescore(q_emb, v, i, rows_fn, top_k)
 
     def resolved_kernel_config(self, batch: int, top_k: int = 10) -> Dict:
         """The selection strategy a `query_batch` of this shape runs.
@@ -335,8 +381,8 @@ class QueryEngine:
         plain = "" if self.device.type == "cuda" else "_plain"
         return {
             "quantize_int8": self.quantize_int8,
-            "int8_only": False,
-            "int8_residual": False,
+            "int8_only": self.int8_only,
+            "int8_residual": self.int8_residual,
             "rescore_oversample": m,
             "merge_k": merge_k,
             "kernel": kernel + plain,
@@ -352,9 +398,22 @@ class QueryEngine:
                 "int8" if self.quantize_int8
                 else str(sel.dtype).removeprefix("torch.")
             ),
-            "rescore_bank": "f32" if m else "",
+            "rescore_bank": self._rescore_bank(),
             "device": str(self.device),
         }
+
+    def _rescore_bank(self) -> str:
+        """The JAX engine's label of the rescore source: for an int8 bank
+        "int8_residual", "" (int8-only), "f32" or "bf16" (the latter also
+        when `int8_rescore` is 0 and nothing is rescored); for a float bank
+        "f32" or ""."""
+        if not self.quantize_int8:
+            return "f32" if self.exact_rescore else ""
+        if self.int8_residual:
+            return "int8_residual"
+        if self.int8_only:
+            return ""
+        return "f32" if self.int8_f32_rescore else "bf16"
 
     # ------------------------------------------------------------------
     # The step

@@ -19,10 +19,13 @@ from typing import Dict, List, Tuple
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# The paths' shapes: 1,000,000 synthetic rows padded to 2048-row tiles, the
-# MiniLM width, k=10 and the rescore oversample of 32.
+# The paths' shapes: 1,000,000 synthetic rows padded to 2048-row tiles (the
+# density paths D1/D2: 10,000,000 rows), the MiniLM width, k=10 and the
+# rescore oversample of 32; path R scores 8192 nodes with W=8 bit words.
 N_PAD, D, K, M, TILE = 1_001_472, 384, 10, 32, 2048
 TILES = N_PAD // TILE
+N_PAD_10M = 10_000_384
+NODES, WORDS = 8192, 8
 
 
 def bound_ms(ops: float, kind: str, nbytes: float) -> Tuple[float, str]:
@@ -32,14 +35,24 @@ def bound_ms(ops: float, kind: str, nbytes: float) -> Tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def _select(b: int, ebytes: int, kind: str, qbytes: int, out_slots: int) -> Dict:
+def _select(b: int, ebytes: int, kind: str, qbytes: int, out_slots: int,
+            n: int = N_PAD) -> Dict:
     """A fused cosine + per-tile select over the bank: q [b, D], the bank
-    [N_PAD, D] (+ one f32 scale per row for int8), the row mask, and
+    [n, D] (+ one f32 scale per row for int8), the row mask, and
     (value, index) pairs for `out_slots` candidates per query."""
-    ops = 2.0 * b * N_PAD * D
-    nbytes = (qbytes * b * D + ebytes * N_PAD * D + N_PAD
-              + (4 * (N_PAD + b) if kind == "int8" else 0) + 8 * b * out_slots)
+    ops = 2.0 * b * n * D
+    nbytes = (qbytes * b * D + ebytes * n * D + n
+              + (4 * (n + b) if kind == "int8" else 0) + 8 * b * out_slots)
     return dict(ops=ops, kind=kind, bytes=nbytes)
+
+
+def scoring_work(b: int, n: int, d: int, w: int, llm: bool) -> Dict:
+    """Kernel B6 for b queries over n nodes: 2*b*n*d f32 operations for the
+    dots; it reads the queries (f32 rows, bit words, count, intent), the
+    weights and the 5 x 6 table, the nodes (f32 rows, bit words, count,
+    type) and the llm column [b, n] if there is one, and writes [b, n]."""
+    nbytes = 4 * (b * (d + w + 2) + 4 + 30 + n * (d + w + 2) + b * n * (2 if llm else 1))
+    return dict(ops=2.0 * b * n * d, kind="f32", bytes=nbytes)
 
 
 def table() -> List[Dict]:
@@ -53,16 +66,16 @@ def table() -> List[Dict]:
          dict(ops=0.0, kind="int8",
               bytes=4 * b_int8 * TILES * K + 32 * b_int8 * M + 8 * b_int8 * M)),
         ("B3", "_topk_tile_kernel_int8 (k-pass packed, exact)",
-         "int8-only select, B=8192", _select(b_int8, 1, "int8", 1, TILES * K)),
+         "paths D1/D2: 10M-row int8 bank, B=2048",
+         _select(2048, 1, "int8", 1, -(-N_PAD_10M // TILE) * K, n=N_PAD_10M)),
         ("B4", "_topk_tile_kernel", "path F1: f32 bank, B=1024",
          _select(b_f1, 4, "f32", 4, TILES * K)),
         ("B5", "_topk_tile_kernel_packed", "path F2: bf16 bank, B=8192",
          _select(b_f2, 2, "bf16", 2, TILES * K)),
-        ("B6", "_scoring_kernel", "fused relevance, B=8 (one query padded), "
-         "N=8192 nodes, W=8 words",
-         dict(ops=2.0 * 8 * 8192 * D, kind="f32",
-              bytes=4 * (8 * D + 8 * 8 + 8192 * D + 8192 * 8 + 2 * 8192
-                         + 2 * 8 * 8192))),
+        ("B6", "_scoring_kernel", "path R: one query, N=8192 nodes, W=8, llm column",
+         scoring_work(1, NODES, D, WORDS, llm=True)),
+        ("B6", "_scoring_kernel", "kernel phase: B=256, N=8192 nodes, W=8, llm column",
+         scoring_work(256, NODES, D, WORDS, llm=True)),
         ("B7", "_topk_tile_kernel_packed_super", "path F2 with pallas_super=4",
          _select(b_f2, 2, "bf16", 2, num_super * k_sub)),
         ("B7", "_topk_tile_kernel_int8_super", "int8 select with pallas_super=4",

@@ -63,7 +63,9 @@ def test_int8_tile_topk_all_tied(cuda):
 
 
 @pytest.mark.parametrize(
-    "b,tiles,k,out_k", [(33, 489, 10, 32), (4, 10, 10, 100), (9, 100, 10, 7)]
+    "b,tiles,k,out_k",
+    [(33, 489, 10, 32), (4, 10, 10, 100), (9, 100, 10, 7), (3, 4883, 10, 32),
+     (3, 4883, 12, 32), (2, 20_000, 128, 128)],
 )
 def test_packed_candidate_merge_equals_plain(cuda, b, tiles, k, out_k):
     rng = np.random.default_rng(tiles * k)
@@ -204,3 +206,131 @@ def test_engine_on_card_ignores_tf32(small_engines):
         torch.set_float32_matmul_precision("highest")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+
+
+B3E_CASES = [(5, 5000, 128, 10, 1024), (70, 9000, 384, 16, 2048),
+             (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)]
+
+
+@pytest.mark.parametrize("b,n,d,k,tile", B3E_CASES)
+def test_int8_exact_tile_topk_equals_plain(cuda, b, n, d, k, tile):
+    args = _b1_inputs(b, n, d, seed=b + k + 1, dev=cuda)
+    kv, ki = topk_cuda.int8_exact_tile_topk(*args, k, tile_n=tile)
+    pv, pi = topk_cuda.int8_exact_tile_topk_plain(*args, k, tile_n=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def test_int8_exact_tile_topk_fills_ties_and_zero_query(cuda):
+    """A filter that leaves 3 rows fills each tile's other slots with
+    (-1e30, the tile's first row); tied rows and a zero query give the
+    lowest rows.  All bit-equal to the plain version."""
+    q8, qs, e8, es, _ = _b1_inputs(8, 3000, 128, seed=3, dev=cuda, tied=True)
+    q8[:2] = 0
+    qs[:2] = 0
+    mask = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    mask[[5, 1500, 2999]] = True
+    for m in (mask, torch.ones_like(mask)):
+        kv, ki = topk_cuda.int8_exact_tile_topk(q8, qs, e8, es, m, 10, tile_n=1024)
+        pv, pi = topk_cuda.int8_exact_tile_topk_plain(q8, qs, e8, es, m, 10, tile_n=1024)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi)
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    base = (torch.arange(3, device=cuda) * 1024)[None, :, None]
+    want = (base + torch.arange(10, device=cuda)).expand(8, 3, 10).to(torch.int32)
+    assert torch.equal(ki, want)
+    kv, ki = topk_cuda.int8_exact_tile_topk(q8, qs, e8, es, mask, 10, tile_n=1024)
+    assert bool((kv[:, :, 1:] == -1e30).all())
+    assert torch.equal(ki[:, :, 1:], base.expand(8, 3, 9).to(torch.int32))
+
+
+def _b6_inputs(b, n, seed, dev, d=384, w=8):
+    from hcrag_tpu_torch.core.types import PRIORITY_MATRIX
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    e = rng.standard_normal((n, d)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    qb = (rng.integers(0, 2**32, (b, w), dtype=np.uint32)
+          & rng.integers(0, 2**32, (b, w), dtype=np.uint32))
+    nb = (rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+          & rng.integers(0, 2**32, (n, w), dtype=np.uint32))
+    qb[::2] = 0  # entity-less queries: the 0.5 / 0.1 rules
+    nb[::7] = 0
+    qc = np.unpackbits(qb.view(np.uint8), axis=1).sum(axis=1).astype(np.int32)
+    nc = np.unpackbits(nb.view(np.uint8), axis=1).sum(axis=1).astype(np.int32)
+    arrays = (q, qb.view(np.int32), qc, rng.integers(0, 5, b).astype(np.int32), e,
+              nb.view(np.int32), nc, rng.integers(0, 6, n).astype(np.int32),
+              np.array([0.3, 0.45, 0.15, 0.1], np.float32), PRIORITY_MATRIX,
+              rng.uniform(0, 1, (b, n)).astype(np.float32))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("b,n,reduction,with_llm",
+                         [(1, 8192, 0, True), (256, 8192, 0, True), (256, 8192, 1, False),
+                          (3, 8191, 0, False), (17, 700, 1, True)])
+def test_batch_relevance_equals_plain(cuda, b, n, reduction, with_llm):
+    from hcrag_tpu_torch.ops import scoring_cuda
+
+    args = _b6_inputs(b, n, seed=b + n, dev=cuda)
+    if not with_llm:
+        args[-1] = None
+    got = scoring_cuda.batch_relevance(*args, reduction=reduction)
+    want = scoring_cuda.batch_relevance_plain(*args, reduction=reduction)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+INT8_MODES = {
+    "int8_only": dict(quantize_int8=True, int8_only=True),
+    "residual": dict(quantize_int8=True, int8_residual=True, int8_rescore=32),
+    "bf16_rescore": dict(quantize_int8=True, int8_rescore=32),
+    "no_rescore": dict(quantize_int8=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(INT8_MODES))
+def test_int8_mode_engine_on_card_equals_engine_on_cpu(cuda, mode):
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(20_000, 384, graph_degree=4)
+    opts = dict(ell_max_degree=8, **INT8_MODES[mode])
+    q = np.random.default_rng(2).standard_normal((64, 384)).astype(np.float32)
+    before = topk_cuda.int8_tile_topk.launches
+    rg = QueryEngine(index, graph, device=cuda, **opts).query_batch(q, top_k=10)
+    assert topk_cuda.int8_tile_topk.launches == before + 1
+    rc = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, top_k=10)
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), atol=1e-5, rtol=0)
+
+
+def test_batch_isrelevant_fused_on_card(cuda):
+    """From 2048 nodes on the card each multi-metric strategy is one launch
+    of B6, within 1e-5 of the CPU's unfused route (a query with
+    entities, where the two routes agree)."""
+    from hcrag_tpu_torch.core.types import NodeInput, QueryInput, QueryIntent, ScorerType
+    from hcrag_tpu_torch.ops import scoring_cuda
+    from hcrag_tpu_torch.pipeline.isrelevant import batch_isRelevant
+
+    rng = np.random.default_rng(4)
+    ents = ["bike", "red", "frame", "manual", "helmet"]
+    nodes = [NodeInput(f"red bike {i}", rng.standard_normal(384).astype(np.float32), {},
+                       ["product", "document", "unknown"][i % 3],
+                       [ents[i % 5]] if i % 4 else [])
+             for i in range(2500)]
+    query = QueryInput("red bike", rng.standard_normal(384).astype(np.float32),
+                       ["red", "bike"], QueryIntent.PRODUCT_SEARCH)
+    for st in (ScorerType.COMPOSITE, ScorerType.PARALLEL, ScorerType.ROUTER,
+               ScorerType.ROUTER_ALL, ScorerType.ROUTER_TWO_SEM_LLM,
+               ScorerType.ROUTER_TWO_ENT_TYPE):
+        before = scoring_cuda.batch_relevance.launches
+        got = batch_isRelevant(query, nodes, st)
+        assert scoring_cuda.batch_relevance.launches == before + 1, st
+        want = batch_isRelevant(query, nodes, st, device="cpu")
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=str(st))

@@ -101,11 +101,13 @@ def test_quantize_rows_byte_equal(setups):
 
 
 def test_quantize_queries_bit_equal():
+    """Against the JAX quantizer as its engine runs it, under jit (where the
+    scale is absmax * (1/127), not absmax / 127)."""
     rng = np.random.default_rng(11)
     q = rng.standard_normal((16, 384)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     q[3] = 0.0  # zero query: scale 0, all-zero codes
-    jq, js = jax_quantize_queries(jnp.asarray(q))
+    jq, js = jax.jit(jax_quantize_queries)(jnp.asarray(q))
     tq, ts = quantize_queries(torch.from_numpy(q))
     assert _bytes_equal(np.asarray(jq), tq.numpy())
     assert _bytes_equal(np.asarray(js), ts.numpy())

@@ -192,6 +192,40 @@ def test_merge_routing_at_bench_pool():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(ov))
 
 
+def test_merge_routing_past_one_block():
+    """10M rows at per-tile k = 12: 4,883 tiles x 12 = 58,596 candidates,
+    more than one block's shared memory holds, still route through B2 (in
+    two chunks on the card) and equal `_merge_tile_candidates`, ties by
+    slot-major position included."""
+    rng = np.random.default_rng(11)
+    b, tiles, k = 2, 4883, 12
+    assert topk_cuda.merge_chunks(tiles, 10) == (tiles, 1)
+    assert topk_cuda.merge_chunks(tiles, k) == (2442, 2)
+    assert topk_cuda.uses_packed_merge(tiles, k, 32)
+    vals = -np.sort(-rng.random((b, tiles, k)).astype(np.float32), axis=2)
+    vals = np.round((vals * 2 - 1) * 64) / 64  # quantized keys tie often
+    vals[:, -50:] = -1e30  # tiles with no valid row
+    idxs = rng.integers(0, 10_000_000, size=(b, tiles, k)).astype(np.int32)
+    idxs[:, -50:] = -1
+    k_pad = 128
+    jv = np.full((b, tiles, k_pad), -1e30, np.float32)
+    ji = np.full((b, tiles, k_pad), -1, np.int32)
+    jv[:, :, :k], ji[:, :, :k] = vals, idxs
+    ov, oi = _merge_tile_candidates(
+        jnp.asarray(jv.reshape(b, -1)), jnp.asarray(ji.reshape(b, -1)),
+        b, tiles, k_pad, k, 32, packed_merge=True, interpret=True,
+    )
+    tv, ti = topk_cuda.merge_tile_candidates(
+        torch.from_numpy(vals), torch.from_numpy(idxs), 32
+    )
+    slot_major = lambda a: a.transpose(0, 2, 1).reshape(b, -1)
+    lv, li = _lexsort_merge(slot_major(vals), slot_major(idxs), 32)
+    np.testing.assert_array_equal(ti.numpy(), li)
+    np.testing.assert_array_equal(tv.numpy(), lv)
+    np.testing.assert_array_equal(np.asarray(oi), li)
+    np.testing.assert_array_equal(np.asarray(ov), lv)
+
+
 def test_cuda_wrappers_refuse_other_devices():
     meta = torch.zeros((2, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
