@@ -10,7 +10,7 @@ last line:
   2. build   — nvcc builds every kernel source from csrc/, all in parallel
                (sm_90a);
   3. kernels — every kernel against its plain PyTorch version on the card:
-               B1, B3e and B2 bit for bit (b=512 at D=384 over 20 tiles
+               B1, B3e, B7i and B2 bit for bit (b=512 at D=384 over 20 tiles
                with a ragged last tile and masked rows, the 4890-candidate
                pool, all-tied input, a small pool, pools past one block's
                shared memory that B2 merges in chunks (10M rows at per-tile
@@ -22,37 +22,59 @@ last line:
                on one-hot queries under a filter that leaves fewer than k
                rows in a tile, and in the pick-count raise case; B6 within
                1e-5 at B=256 x 8192 nodes (both reductions), one query x
-               8192 nodes and a ragged 8191 nodes;
+               8192 nodes and a ragged 8191 nodes; B7i and B7f (f32 and
+               bf16 banks; inputs whose dots are exact in any order) bit for
+               bit at 2048-, 4096- and 8192-row supertiles with masked rows,
+               a ragged last supertile, ragged queries, k_sub 128 and the
+               small-pool pick raise, B7f on normal inputs by `testing.py`'s
+               rule, and the supertile merge's routing (B2 from 1024);
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
   5. path F2 — the same index in `bench.py`'s bf16 mode (`exact_rescore=32`:
                B5 over a bf16 bank, B2, the f32 rescore), B=8192;
+     path S1 — the same index, `exact_rescore=32, pallas_super=8` (1024-row
+               tiles grouped 8 at a time: 123 supertiles of 8192 rows), B=8192:
+               B7f, B2 over the 123 x 16 pool, the f32 rescore;
+     path S2 — the same index, `quantize_int8=True, int8_rescore=32,
+               int8_f32_rescore=True, pallas_super=4` (2048 x 4 rows),
+               B=8192: B7i, B2;
   6. path F1 — the default engine (B4 over the f32 bank), `query_batch` at
                B=1024, then `process_query`, `find_similar_content`,
                `search_by_category` (every 500th row re-typed) and
                `retrieve_batch_device` at B=1024, each of which must launch
                B4;
+     path X  — the same rows with a degree-8 graph, `exact_rescore=32`,
+               top_k=100, depth 3, B=256 (the JAX repo's expansion-heavy
+               deployment): B5 at per-tile k = 100, B2 over 489 x 100 -> 100;
+               then its breakdown: retrieval only, `expand_batch` at depth 3
+               over random seeds, the dedup alone at C = 58,400, each held
+               against the CPU on a few rows;
   7. path D3 — the same rows rounded to bf16 (as `bench.py` hands the index
                in its BENCH_INT8_MODE="" mode), `quantize_int8=True,
                int8_rescore=32`: B1, B2, the rescore from bf16 rows, B=8192;
   8. path R  — `batch_isRelevant` over 8192 nodes (D=384) for the six
                multi-metric strategies, offline LLM client: one launch of
                B6 per call, scores against the CPU's plain route, host time
-               of each call beside the unfused route on the card;
+               of each call beside the unfused route on the card; then both
+               routes at 512, 2048, 8192 and 32768 nodes, ten calls each in
+               turns, with the device's busy share of one call of each;
   9. path D1 — a 10,000,000 x 384 index, `quantize_int8=True,
                int8_residual=True, int8_rescore=32`, B=2048 (the JAX repo's
                10M one-chip deployment): B1, B2, the rescore from the
                int8 + residual reconstruction; then `cosine_top_k_int8(...,
                packed_select=False)` over its bank (kernel B3e);
+     path S3 — the same rows, `int8_residual=True, int8_rescore=32,
+               pallas_super=4`, B=2048: B7i, B2 over the 1221 x 16 pool;
  10. path D2 — the same rows rounded to bf16, `int8_only=True` (no
                rescore): B1 at per-tile k = top_k, the contract of B3's
                k-pass packed branch, and B2; its gate queries' top-10 must
                equal the plain route's.
 
 Every engine path prints: launch counts (set to 0 just before its
-`query_batch`), recall@10 against f32 brute force on 256 queries (TF32 off),
-a small card-vs-CPU engine check, host set-up time, step time (CUDA events),
+`query_batch`; the supertile paths must not launch B1 or B5), recall@10
+against f32 brute force on 256 queries (TF32 off), a small card-vs-CPU
+engine check, host set-up time, step time (CUDA events),
 a profile of the step, peak device memory, and its kernels at its shapes
 against their plain versions, with their bounds.  Each engine and index is
 freed before the next.  The second-to-last line is a JSON object listing the
@@ -84,6 +106,9 @@ D2_MIN_RECALL = 0.90  # int8 selection without a rescore
 # (benchmarks/results.json, synthetic_1M_int8_rescore).
 D3_MIN_RECALL = 0.997
 R_NODES = 8192
+R_ROUTE_NODES = (512, 2048, 8192, 32768)  # path R's route data
+SUPER_FLOAT, SUPER_INT8 = 8, 4  # pallas_super of path S1, of paths S2 and S3
+X_TOP_K, X_DEPTH, X_BATCH, X_DEGREE = 100, 3, 256, 8  # path X
 
 
 def log(*a):
@@ -323,6 +348,82 @@ def phase_float_kernels(dev, err: dict) -> None:
     b5("k128_ragged_queries", float_inputs(130, 4096, 128, 27, dev, torch.bfloat16), 128)
 
 
+def dyadic_inputs(b, n, d, seed, dev, dtype, mask_frac=0.1):
+    """Float operands that are multiples of 1/64 (|x| <= 6/64): every dot is
+    exact in f32 in any summation order, so B7f and its plain version see
+    the same keys and must agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-6, 7, (b, d)) / 64).to(dev, dtype)
+    e = torch.from_numpy(rng.integers(-6, 7, (n, d)) / 64).to(dev, dtype)
+    return q, e, torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
+
+
+def phase_super_kernels(dev, err: dict) -> None:
+    """B7i and B7f against their plain versions, and the supertile merge's
+    routing; updates the max abs errors in `err`."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    err.update(int8_super_tile_topk=0.0, float_packed_super_tile_topk=0.0)
+
+    def b7(kernel, name, args, k, lbits, exact=True):
+        kv, ki = getattr(tc, kernel)(*args, k, lbits)
+        pv, pi = getattr(tc, kernel + "_plain")(*args, k, lbits)
+        if exact:
+            e, how = same_bits(kv, ki, pv, pi), "bit-equal"
+        else:
+            torch.cuda.synchronize()
+            e, moved = check_packed_topk(kv, ki, pv, pi, *args[:2], lane_bits=lbits)
+            how = f"max |err| {e:.3g}, {moved} supertiles next to a key-quantum boundary"
+        err[kernel] = max(err[kernel], e)
+        int8 = "int8" in kernel
+        bank = args[2] if int8 else args[1]
+        log(f"  {'B7i' if int8 else 'B7f'} {name}: b={args[0].shape[0]} n={bank.shape[0]} "
+            f"d={bank.shape[1]} {str(bank.dtype)[6:]} k_sub={k} lbits={lbits}: {how}")
+        return kv, ki
+
+    # b=512 over 40,000 rows (a ragged last supertile), a tenth masked, at
+    # each supertile width; then k_sub 128 over ragged queries, and the
+    # small-pool raise (one 8192-row supertile cannot give 32 at k_sub 16).
+    k_raised = tc.super_pick_count(TOP_K, 5000, 8192, RESCORE)
+    if k_raised != 32:
+        raise AssertionError(f"supertile pick-count raise gave {k_raised}, want 32")
+    for lbits in (2048, 4096, 8192):
+        b7("int8_super_tile_topk", "bench", b1_inputs(512, 40_000, DIM, 30 + lbits, dev), 16,
+           lbits)
+    b7("int8_super_tile_topk", "k128_ragged_queries", b1_inputs(130, 20_000, DIM, 31, dev),
+       128, 8192)
+    b7("int8_super_tile_topk", "pick_raise", b1_inputs(100, 5000, DIM, 32, dev), k_raised,
+       8192)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lbits in (2048, 4096, 8192):
+            b7("float_packed_super_tile_topk", "exact_dots",
+               dyadic_inputs(512, 40_000, DIM, 33 + lbits, dev, dtype), 16, lbits)
+        b7("float_packed_super_tile_topk", "exact_dots_k128_ragged_queries",
+           dyadic_inputs(130, 20_000, DIM, 34, dev, dtype), 128, 8192)
+        b7("float_packed_super_tile_topk", "exact_dots_pick_raise",
+           dyadic_inputs(100, 5000, DIM, 35, dev, dtype), k_raised, 8192)
+        b7("float_packed_super_tile_topk", "normal", float_inputs(512, 40_000, DIM, 36, dev,
+                                                                  dtype), 16, 8192, exact=False)
+
+    # Supertile pools of 1024 or more go through B2, smaller ones through the
+    # stable sort in slot-major order.
+    q8, qs, e8, es, mask = b1_inputs(64, 40_000, DIM, 37, dev)
+    for lbits in (2048, 8192):
+        vals, idxs = tc.int8_super_tile_topk(q8, qs, e8, es, mask, 16, lbits)
+        before = tc.packed_candidate_merge.launches
+        tc.merge_super_candidates(vals, idxs, TOP_K, RESCORE)
+        if tc.packed_candidate_merge.launches != before:
+            raise AssertionError(f"a {vals.shape[1]} x 16 supertile pool went through B2")
+    vals = torch.randn(64, 123, 16, device=dev)
+    before = tc.packed_candidate_merge.launches
+    tc.merge_super_candidates(vals, torch.zeros_like(vals, dtype=torch.int32), TOP_K,
+                              RESCORE)
+    if tc.packed_candidate_merge.launches != before + 1:
+        raise AssertionError("a 1968-candidate supertile pool did not go through B2")
+    log("  supertile merge routing: pools of 320 and 80 take the stable sort, 1968 takes B2")
+
+
 def b6_inputs(b, n, seed, dev, w=8):
     """Operands of kernel B6: normalized f32 rows, random bit words (every
     other query and every 7th node without entities), intents, types, the
@@ -372,28 +473,31 @@ def phase_scoring_kernels(dev, err: dict) -> None:
             f"max |err| {e:.3g}")
 
 
-def brute_force_top_k(emb: np.ndarray, queries: np.ndarray, dev) -> np.ndarray:
+def brute_force_top_k(emb: np.ndarray, queries: np.ndarray, dev,
+                      k: int = TOP_K) -> np.ndarray:
     """The f32 brute-force top-k of the first GATE_QUERIES queries over the
     host rows `emb`, with ties to the lowest index: row chunks of 250k go
     to the card, where the products run in full f32 (TF32 is off)."""
     q = torch.from_numpy(queries[:GATE_QUERIES]).to(dev)
-    best_v = torch.full((q.shape[0], TOP_K), -float("inf"), device=dev)
-    best_i = torch.zeros((q.shape[0], TOP_K), dtype=torch.int64, device=dev)
+    best_v = torch.full((q.shape[0], k), -float("inf"), device=dev)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.int64, device=dev)
     chunk = 250_000
     for lo in range(0, emb.shape[0], chunk):
         s = q @ torch.from_numpy(emb[lo:lo + chunk]).to(dev).T
         cv, ci = torch.sort(s, dim=1, descending=True, stable=True)
-        allv = torch.cat([best_v, cv[:, :TOP_K]], dim=1)
-        alli = torch.cat([best_i, ci[:, :TOP_K] + lo], dim=1)
-        order = torch.sort(allv, dim=1, descending=True, stable=True).indices[:, :TOP_K]
+        allv = torch.cat([best_v, cv[:, :k]], dim=1)
+        alli = torch.cat([best_i, ci[:, :k] + lo], dim=1)
+        order = torch.sort(allv, dim=1, descending=True, stable=True).indices[:, :k]
         best_v, best_i = allv.gather(1, order), alli.gather(1, order)
     return best_i.cpu().numpy()
 
 
 def recall(ref: np.ndarray, got: np.ndarray) -> float:
-    """recall@k of `got` (its first len(ref) rows) against `ref`."""
-    hits = sum(len(set(got[b].tolist()) & set(ref[b].tolist())) for b in range(len(ref)))
-    return hits / (len(ref) * TOP_K)
+    """recall@k of `got` (the first k columns of its first len(ref) rows)
+    against `ref` [rows, k]."""
+    k = ref.shape[1]
+    hits = sum(len(set(got[b, :k].tolist()) & set(ref[b].tolist())) for b in range(len(ref)))
+    return hits / (len(ref) * k)
 
 
 def round_to_bf16(emb: np.ndarray) -> None:
@@ -442,9 +546,9 @@ def check_small_against_cpu(dev, label: str, opts: dict, tf32: bool = False) -> 
     log(f"  {label}: small index with TF32 enabled: the same bits as without")
 
 
-def profile_step(step, card: str, steps: int = 3) -> None:
-    """Device time by kernel over a few steps (torch.profiler), and the
-    device's busy share of that window's wall time."""
+def profiled(step, steps: int):
+    """torch.profiler over `steps` calls of step(): (device-side rows
+    [(us, name, count)], device busy us, wall us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -465,7 +569,13 @@ def profile_step(step, card: str, steps: int = 3) -> None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us, evt.key, evt.count))
-    total = sum(r[0] for r in rows)
+    return rows, sum(r[0] for r in rows), wall_us
+
+
+def profile_step(step, card: str, steps: int = 3) -> None:
+    """Device time by kernel over a few steps (torch.profiler), and the
+    device's busy share of that window's wall time."""
+    rows, total, wall_us = profiled(step, steps)
     if not total:
         log("[profile] the profiler saw no device time: not measured")
         return
@@ -473,15 +583,15 @@ def profile_step(step, card: str, steps: int = 3) -> None:
         f"{wall_us / 1e3:.3f} ms wall ({100 * total / wall_us:.1f}%); {card}")
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         log(f"[profile]   {dev_us / steps / 1e3:9.3f} ms/step  "
-            f"{100 * dev_us / total:5.1f}%  x{count // steps:<4d} {key[:70]}")
+            f"{100 * dev_us / total:5.1f}%  x{count // steps:<4d} {key[:96]}")
 
 
-def check_result(res, batch: int, n_rows: int) -> None:
+def check_result(res, batch: int, n_rows: int, top_k: int = TOP_K) -> None:
     """Finite outputs of the expected shapes, indices in range, scores
     descending."""
     shapes = {
-        "top_scores": (batch, TOP_K), "top_indices": (batch, TOP_K),
-        "relevance": (batch, TOP_K), "combined": (batch, TOP_K),
+        "top_scores": (batch, top_k), "top_indices": (batch, top_k),
+        "relevance": (batch, top_k), "combined": (batch, top_k),
         "expanded_nodes": (batch, 20), "expanded_counts": (batch,),
         "expanded_relevance": (batch, 20),
     }
@@ -535,32 +645,37 @@ class Record:
 
 
 def drive(engine, queries: np.ndarray, counted, label: str, ref: np.ndarray,
-          rec: Record, n_rows: int = N_ROWS, min_recall: float = MIN_RECALL):
+          rec: Record, n_rows: int = N_ROWS, min_recall: float = MIN_RECALL,
+          top_k: int = TOP_K, depth: int = DEPTH, forbidden=()):
     """One `query_batch` with every launch counter at 0 just before it and
-    read just after; every kernel in `counted` must have launched.  Returns
-    the result."""
+    read just after; every kernel in `counted` must have launched, none in
+    `forbidden`.  Returns the result."""
     zero_counts()
     t0 = time.time()
-    res = engine.query_batch(queries, top_k=TOP_K, expansion_depth=DEPTH)
+    res = engine.query_batch(queries, top_k=top_k, expansion_depth=depth)
     first_s = time.time() - t0
     launches = read_counts()
     rec.launches[label] = launches
-    log(f"[{label}] query_batch B={len(queries)} k={TOP_K} depth={DEPTH}: first "
+    log(f"[{label}] query_batch B={len(queries)} k={top_k} depth={depth}: first "
         f"call {first_s:.2f} s, launches {launches}")
     for name in counted:
         if launches[name] < 1:
             raise AssertionError(f"path {label} never launched {name}")
-    check_result(res, len(queries), n_rows)
+    for name in forbidden:
+        if launches[name]:
+            raise AssertionError(f"path {label} launched {name}")
+    check_result(res, len(queries), n_rows, top_k)
     r = recall(ref, res.top_indices)
-    log(f"[{label}] recall@{TOP_K} vs f32 brute force ({GATE_QUERIES} queries): "
+    log(f"[{label}] recall@{ref.shape[1]} vs f32 brute force ({GATE_QUERIES} queries): "
         f"{r:.4f} (gate {min_recall})")
     if r < min_recall:
         raise AssertionError(f"{label}: recall {r} below {min_recall}")
     return res
 
 
-def time_step(engine, dq, label: str, card: str, reps: int) -> float:
-    step = lambda: engine.query_batch_device(dq, top_k=TOP_K, expansion_depth=DEPTH)  # noqa: E731
+def time_step(engine, dq, label: str, card: str, reps: int, top_k: int = TOP_K,
+              depth: int = DEPTH) -> float:
+    step = lambda: engine.query_batch_device(dq, top_k=top_k, expansion_depth=depth)  # noqa: E731
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(step, reps=reps)
     log(f"[{label}] step {step_ms:.3f} ms, {len(dq) / step_ms * 1e3:.1f} QPS "
@@ -577,7 +692,8 @@ def path_mask(n_bank: int, n_rows: int, dev) -> torch.Tensor:
 
 
 KERNELS = ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk",
-           "float_packed_tile_topk", "int8_exact_tile_topk", "batch_relevance")
+           "float_packed_tile_topk", "int8_exact_tile_topk", "batch_relevance",
+           "float_packed_super_tile_topk", "int8_super_tile_topk")
 SOURCES = {
     "int8_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
                        "hcrag_tpu/ops/topk_pallas.py:535"),
@@ -591,10 +707,14 @@ SOURCES = {
                              "hcrag_tpu/ops/topk_pallas.py:633"),
     "batch_relevance": ("hcrag_tpu_torch/csrc/batch_relevance.cu",
                         "hcrag_tpu/ops/scoring_pallas.py:38"),
+    "float_packed_super_tile_topk": ("hcrag_tpu_torch/csrc/float_tile_topk.cu",
+                                     "hcrag_tpu/ops/topk_pallas.py:319"),
+    "int8_super_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
+                             "hcrag_tpu/ops/topk_pallas.py:345"),
 }
 
 
-def engine_ready(label: str, index, graph, dev, batch: int, **opts):
+def engine_ready(label: str, index, graph, dev, batch: int, top_k: int = TOP_K, **opts):
     from hcrag_tpu_torch.query.engine import QueryEngine
 
     t0 = time.time()
@@ -602,8 +722,35 @@ def engine_ready(label: str, index, graph, dev, batch: int, **opts):
     torch.cuda.synchronize()
     log(f"[{label}] engine ready in {time.time() - t0:.1f} s (host set-up); "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; resolved: "
-        f"{json.dumps(engine.resolved_kernel_config(batch, TOP_K))}")
+        f"{json.dumps(engine.resolved_kernel_config(batch, top_k))}")
     return engine
+
+
+def merge_at_path(vals, idxs, out_k, label, card, rec, library=False) -> None:
+    """B2 over the path's candidate pool [b, tiles, k] against its plain
+    version (bit for bit), then its time beside the plain version's, its
+    bound and, with `library`, one `torch.topk` over the flat pool (no tie
+    order)."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+
+    rec.err("packed_candidate_merge",
+            same_bits(*tc.packed_candidate_merge(vals, idxs, out_k),
+                      *tc.packed_candidate_merge_plain(vals, idxs, out_k)))
+    b, tiles, k = vals.shape
+    ms = cuda_ms(lambda: tc.packed_candidate_merge(vals, idxs, out_k), reps=20)
+    plain_ms = cuda_ms(lambda: tc.packed_candidate_merge_plain(vals, idxs, out_k), reps=3)
+    lib_ms = None
+    if library:
+        flat = vals.view(b, tiles * k)
+        lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
+    # B2 reads every value once, gathers out_k indices per query (one
+    # 32-byte sector each) and writes (value, index) pairs.
+    bound = bound_ms(0.0, "int8", 4 * vals.numel() + 32 * b * out_k + 8 * b * out_k)
+    lib = f", torch.topk {lib_ms:.3f} ms" if lib_ms is not None else ""
+    log(f"[{label}] B2 packed_candidate_merge B={b} pool={tiles} x {k} out_k={out_k}: "
+        f"bit-equal to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms{lib}, "
+        f"bound {bound[0]:.4f} ms by bytes; {card})")
+    rec.kernel("packed_candidate_merge", label, ms, plain_ms, bound, lib_ms)
 
 
 def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
@@ -623,34 +770,18 @@ def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
     rec.err("int8_tile_topk",
             same_bits(vals, idxs, *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k)))
     tiles = vals.shape[1]
-    out_k = min(max(k, merge_out_k), tiles * k)
-    rec.err("packed_candidate_merge",
-            same_bits(*tc.packed_candidate_merge(vals, idxs, out_k),
-                      *tc.packed_candidate_merge_plain(vals, idxs, out_k)))
-    log(f"[{label}] B1 and B2 at the path's shapes: bit-equal to their plain versions")
+    log(f"[{label}] B1 at the path's shapes: bit-equal to its plain version")
     b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, k), reps=b1_reps)
     b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1)
-    b2_ms = cuda_ms(lambda: tc.packed_candidate_merge(vals, idxs, out_k), reps=20)
-    b2_plain_ms = cuda_ms(lambda: tc.packed_candidate_merge_plain(vals, idxs, out_k), reps=3)
-    b2_lib_ms = None
-    if b2_library:
-        flat = vals.view(b, tiles * k)
-        b2_lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
     b1_bytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel()
                 + mask.numel() + 8 * vals.numel())
     b1_bound = bound_ms(2.0 * b * n_bank * DIM, "int8", b1_bytes)
-    # B2 reads every value once, gathers out_k indices per query (one
-    # 32-byte sector each) and writes (value, index) pairs.
-    b2_bound = bound_ms(0.0, "int8", 4 * vals.numel() + 32 * b * out_k + 8 * b * out_k)
     log(f"[{label}] B1 int8_tile_topk B={b} N={n_bank} tiles={tiles} k={k}: "
         f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
         f"by {b1_bound[1]}; {card})")
-    lib = f", torch.topk {b2_lib_ms:.3f} ms" if b2_lib_ms is not None else ""
-    log(f"[{label}] B2 packed_candidate_merge B={b} pool={tiles * k} out_k={out_k}: "
-        f"{b2_ms:.3f} ms (plain {b2_plain_ms:.3f} ms{lib}, "
-        f"bound {b2_bound[0]:.4f} ms by bytes; {card})")
     rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
-    rec.kernel("packed_candidate_merge", label, b2_ms, b2_plain_ms, b2_bound, b2_lib_ms)
+    merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec,
+                  library=b2_library)
 
 
 def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
@@ -703,6 +834,166 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
         f"{b5_bound[1]}; {card})")
     rec.kernel("float_packed_tile_topk", "F2", b5_ms, b5_plain_ms, b5_bound)
     log(f"[F2] B2 launches on this path: {rec.launches['F2']['packed_candidate_merge']}")
+
+
+SUPER_PATHS = {  # label -> (engine options, B7 kernel, supertile factor run)
+    "S1": (dict(exact_rescore=RESCORE, pallas_super=SUPER_FLOAT),
+           "float_packed_super_tile_topk", SUPER_FLOAT),
+    "S2": (dict(quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True,
+                pallas_super=SUPER_INT8), "int8_super_tile_topk", SUPER_INT8),
+    "S3": (dict(quantize_int8=True, int8_residual=True, int8_rescore=RESCORE,
+                pallas_super=SUPER_INT8), "int8_super_tile_topk", SUPER_INT8),
+}
+
+
+def path_super(label, index, graph, queries, ref, dev, card, rec, n_rows=N_ROWS,
+               step_reps=3) -> None:
+    """A supertile path: the step launches its B7 kernel and B2 (never B1
+    or B5); then B7 at the path's shapes against its plain version (B7i bit
+    for bit, B7f by `testing.py`'s rule for an 8192-row lane field), and
+    B2 over the supertile pool."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_queries
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    opts, kernel, spt = SUPER_PATHS[label]
+    opts = dict(opts, select_lane_t=1)
+    b = len(queries)
+    engine = engine_ready(label, index, graph, dev, b, **opts)
+    cfg = engine.resolved_kernel_config(b, TOP_K)
+    lbits, k_sub = cfg["tile_n"] * cfg["super_tiles"], cfg["tile_k"]
+    if not cfg["kernel"].startswith(kernel) or (cfg["super_tiles"], lbits, k_sub) != (
+            spt, 8192, 16):
+        raise AssertionError(f"{label} resolved {cfg}")
+    drive(engine, queries, (kernel, "packed_candidate_merge"), label, ref, rec,
+          n_rows=n_rows, forbidden=("int8_tile_topk", "float_packed_tile_topk"))
+    check_small_against_cpu(dev, label, dict(ell_max_degree=8, **opts))
+    dq = torch.from_numpy(queries).to(dev)
+    time_step(engine, dq, label, card, reps=step_reps)
+
+    bank = engine._bank()
+    int8 = engine.quantize_int8
+    e = bank["emb_int8"] if int8 else bank["emb"]
+    n_bank = e.shape[0]
+    mask = path_mask(n_bank, n_rows, dev)
+    args = (*quantize_queries(dq), e, bank["emb_scale"], mask) if int8 else (
+        dq.to(e.dtype), e, mask)
+    fn, plain = getattr(tc, kernel), getattr(tc, kernel + "_plain")
+    vals, idxs = fn(*args, k_sub, lbits)
+    pv, pi = plain(*args, k_sub, lbits)
+    if int8:
+        err, how = same_bits(vals, idxs, pv, pi), "bit-equal to its plain version"
+    else:
+        torch.cuda.synchronize()
+        err, moved = check_packed_topk(vals, idxs, pv, pi, *args[:2], lane_bits=lbits)
+        how = (f"agrees with its plain version (max |err| {err:.3g}, {moved} of "
+               f"{vals.shape[0] * vals.shape[1]} supertiles next to a key-quantum boundary)")
+    rec.err(kernel, err)
+    del pv, pi
+    num_super = vals.shape[1]
+    ms = cuda_ms(lambda: fn(*args, k_sub, lbits), reps=2)
+    plain_ms = cuda_ms(lambda: plain(*args, k_sub, lbits), reps=1, warmup=0)
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 8 * b * num_super * k_sub
+    if e.dtype not in (torch.int8, torch.bfloat16):
+        raise AssertionError(f"{label}: a {e.dtype} selection bank")
+    bound = bound_ms(2.0 * b * n_bank * DIM, "int8" if int8 else "bf16", nbytes)
+    log(f"[{label}] B7 {kernel} B={b} N={n_bank} supertiles={num_super} x {lbits} rows "
+        f"k_sub={k_sub}: {how}; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms by {bound[1]}; {card})")
+    rec.kernel(kernel, label, ms, plain_ms, bound)
+    merge_at_path(vals, idxs, min(RESCORE, num_super * k_sub), label, card, rec,
+                  library=True)
+
+
+def path_x(index, queries, dev, card, rec) -> None:
+    """The expansion-heavy deployment: top_k=100, depth 3, B=256 over the
+    1M rows with a degree-8 graph, `exact_rescore=32` (B5 at per-tile k =
+    100, B2 over 489 x 100 -> 100); then the breakdown that the JAX repo's
+    `benchmarks/expansion_heavy.py` records, each part held against the CPU
+    on a few rows, and B5 and B2 at the path's shapes."""
+    from hcrag_tpu_torch.ops import expand as ex
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import check_packed_topk
+    from hcrag_tpu_torch.utils.synthetic import synthetic_graph
+
+    t0 = time.time()
+    graph = synthetic_graph(N_ROWS, X_DEGREE)
+    log(f"[X] degree-{X_DEGREE} graph over {N_ROWS} nodes built in {time.time() - t0:.1f} s "
+        f"(host)")
+    xq = np.ascontiguousarray(queries[:X_BATCH])
+    ref10 = brute_force_top_k(index.emb, xq, dev)
+    ref100 = brute_force_top_k(index.emb, xq, dev, k=X_TOP_K)
+    opts = dict(exact_rescore=RESCORE, select_lane_t=1)
+    engine = engine_ready("X", index, graph, dev, X_BATCH, top_k=X_TOP_K, **opts)
+    res = drive(engine, xq, ("float_packed_tile_topk", "packed_candidate_merge"), "X", ref10,
+                rec, top_k=X_TOP_K, depth=X_DEPTH)
+    log(f"[X] recall@{X_TOP_K} vs f32 brute force ({GATE_QUERIES} queries): "
+        f"{recall(ref100, res.top_indices):.4f} (not gated)")
+    dq = torch.from_numpy(xq).to(dev)
+    step_ms = time_step(engine, dq, "X", card, reps=5, top_k=X_TOP_K, depth=X_DEPTH)
+
+    # The breakdown: retrieval only, expansion only over random seeds, the
+    # dedup alone over random candidates shaped like depth 3's.
+    rng = np.random.default_rng(13)
+    seeds = torch.from_numpy(rng.integers(0, N_ROWS, (X_BATCH, X_TOP_K)).astype(np.int32))
+    c = X_TOP_K * (X_DEGREE + X_DEGREE**2 + X_DEGREE**3)
+    cand = torch.from_numpy(rng.integers(-1, N_ROWS, (X_BATCH, c)).astype(np.int32))
+    nb, nb2 = engine.d_neighbors, engine.d_neighbors_hop2
+    seeds_d, cand_d = seeds.to(dev), cand.to(dev)
+    parts = {
+        "retrieval": lambda: engine.retrieve_batch_device(dq, top_k=X_TOP_K),
+        "expand_batch": lambda: ex.expand_batch(nb, seeds_d, depth=X_DEPTH, max_nodes=20,
+                                                hop2_neighbors=nb2),
+        "dedup": lambda: ex._ordered_unique_mask(cand_d, N_ROWS),
+        "step_depth1": lambda: engine.query_batch_device(dq, top_k=X_TOP_K,
+                                                         expansion_depth=1),
+    }
+    part_ms = {name: cuda_ms(fn, reps=5) for name, fn in parts.items()}
+    log(f"[X] breakdown, ms per batch of {X_BATCH} (CUDA events, 5 reps; {card}): full step "
+        f"(depth {X_DEPTH}) {step_ms:.3f}; retrieval only (k={X_TOP_K}) "
+        f"{part_ms['retrieval']:.3f}; expand_batch depth {X_DEPTH} over random seeds "
+        f"[{X_BATCH}, {X_TOP_K}] {part_ms['expand_batch']:.3f}; dedup alone at C={c} "
+        f"{part_ms['dedup']:.3f}; full step at depth 1 {part_ms['step_depth1']:.3f}")
+
+    rows = 4
+    cpu = QueryEngine(index, graph, device="cpu", ell_max_degree=8, **opts)
+    gv, gi = (t[:rows].cpu() for t in parts["retrieval"]())
+    cv, ci = cpu.retrieve_batch_device(torch.from_numpy(xq[:rows]), top_k=X_TOP_K)
+    if not torch.equal(gi, ci) or float((gv - cv).abs().max()) > 1e-5:
+        raise AssertionError("X: retrieval on the card differs from the CPU's")
+    g_out = [t[:rows].cpu() for t in parts["expand_batch"]()]
+    c_out = ex.expand_batch(cpu.d_neighbors, seeds[:rows], depth=X_DEPTH, max_nodes=20,
+                            hop2_neighbors=cpu.d_neighbors_hop2)
+    if not all(torch.equal(g, w) for g, w in zip(g_out, c_out)):
+        raise AssertionError("X: expand_batch on the card differs from the CPU's")
+    if not torch.equal(parts["dedup"]()[:rows].cpu(),
+                       ex._ordered_unique_mask(cand[:rows], N_ROWS)):
+        raise AssertionError("X: the dedup on the card differs from the CPU's")
+    log(f"[X] retrieval, expand_batch and the dedup on the card equal the CPU's on {rows} rows")
+    del cpu
+
+    e = engine.d_emb
+    n_bank = e.shape[0]
+    mask = path_mask(n_bank, N_ROWS, dev)
+    qb = dq.to(torch.bfloat16)
+    k = tc.tile_pick_count(X_TOP_K, n_bank, 2048, 0)
+    kv, ki = tc.float_packed_tile_topk(qb, e, mask, k)
+    pv, pi = tc.float_packed_tile_topk_plain(qb, e, mask, k)
+    err, moved = check_packed_topk(kv, ki, pv, pi, qb, e)
+    rec.err("float_packed_tile_topk", err)
+    del pv, pi
+    ms = cuda_ms(lambda: tc.float_packed_tile_topk(qb, e, mask, k), reps=3)
+    plain_ms = cuda_ms(lambda: tc.float_packed_tile_topk_plain(qb, e, mask, k), reps=1)
+    tiles = kv.shape[1]
+    bound = bound_ms(2.0 * X_BATCH * n_bank * DIM, "bf16",
+                     2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * kv.numel())
+    log(f"[X] B5 float_packed_tile_topk B={X_BATCH} N={n_bank} tiles={tiles} k={k}: agrees "
+        f"with its plain version (max |err| {err:.3g}, {moved} tiles next to a key-quantum "
+        f"boundary); {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms by "
+        f"{bound[1]}; {card})")
+    rec.kernel("float_packed_tile_topk", "X", ms, plain_ms, bound)
+    merge_at_path(kv, ki, X_TOP_K, "X", card, rec)
 
 
 def path_f1(index, graph, ref, dev, card, rec) -> None:
@@ -797,13 +1088,73 @@ def path_d3(index, graph, queries, ref, dev, card, rec) -> None:
     time_step(engine, torch.from_numpy(queries).to(dev), "D3", card, reps=5)
 
 
+def r_inputs(n: int):
+    """Path R's query and `n` seeded nodes (D=384, 256 entities: 8 bit
+    words, six node types, word-overlap texts)."""
+    from hcrag_tpu_torch.core.types import NodeInput, QueryInput, QueryIntent
+
+    rng = np.random.default_rng(12)
+    words = np.array(["red", "road", "bike", "frame", "manual", "helmet", "chain", "the"])
+    types = ["product", "document", "specification", "annotation", "category", "unknown"]
+    ents = [f"ent{i}" for i in range(256)]
+    embs = rng.standard_normal((n, DIM)).astype(np.float32)
+    n_ents = rng.integers(0, 5, n)
+    ent_ids = rng.integers(0, 256, (n, 4))
+    text_ids = rng.integers(0, len(words), (n, 6))
+    nodes = [NodeInput(" ".join(words[text_ids[i]]), embs[i], {}, types[i % 6],
+                       [ents[j] for j in ent_ids[i, :n_ents[i]]])
+             for i in range(n)]
+    query = QueryInput("red road bike frame", rng.standard_normal(DIM).astype(np.float32),
+                       ["ent3", "ent17", "ent200"], QueryIntent.PRODUCT_SEARCH)
+    return query, nodes
+
+
+def path_r_routes(dev, card) -> None:
+    """The route data of `batch_isRelevant`'s composite scoring on the card:
+    the fused route (B6) and the unfused one from the same judge column at
+    R_ROUTE_NODES node counts, ten calls each in turns (host clock), and the
+    device's busy share of one call of each (the rest is the host's)."""
+    from hcrag_tpu_torch.config import RuntimeConfig
+    from hcrag_tpu_torch.core.types import DEFAULT_COMPOSITE_WEIGHTS, ScorerType
+    from hcrag_tpu_torch.pipeline import isrelevant as isr
+    from hcrag_tpu_torch.pipeline.llm import LLMClient
+
+    t0 = time.time()
+    query, all_nodes = r_inputs(max(R_ROUTE_NODES))
+    client = LLMClient(RuntimeConfig(llm_base_url=""))
+    log(f"[R routes] {len(all_nodes)} nodes built in {time.time() - t0:.1f} s (host set-up)")
+    routes = {"fused": isr._fused_device_scores, "unfused": isr._unfused_device_scores}
+    for n in R_ROUTE_NODES:
+        nodes = all_nodes[:n]
+        llm = isr._batch_process_with_llm(query, nodes, 10, client)
+        calls = {name: (lambda fn=fn: fn(query, nodes, ScorerType.COMPOSITE,
+                                         DEFAULT_COMPOSITE_WEIGHTS, llm=llm, device=dev))
+                 for name, fn in routes.items()}
+        for call in calls.values():
+            call()  # warm-up
+        ms = {name: [] for name in calls}
+        for i in range(10):
+            for name in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
+                t0 = time.perf_counter()
+                calls[name]()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        busy = {}
+        for name, call in calls.items():
+            _, busy_us, wall_us = profiled(call, 1)
+            busy[name] = (100 * busy_us / wall_us, wall_us / 1e3)
+        log(f"[R routes] {n} nodes, composite, 10 calls each in turns (host clock; {card}): "
+            + "; ".join(f"{name} median {np.median(v):.2f} ms (min {min(v):.2f}, max "
+                        f"{max(v):.2f}), device busy {busy[name][0]:.1f}% of one "
+                        f"{busy[name][1]:.2f} ms call (host share "
+                        f"{100 - busy[name][0]:.1f}%)" for name, v in ms.items()))
+
+
 def path_r(dev, card, rec) -> None:
     """`batch_isRelevant` over R_NODES nodes for the six multi-metric
     strategies: one launch of B6 per call."""
     from hcrag_tpu_torch.config import RuntimeConfig
     from hcrag_tpu_torch.core.types import (
-        DEFAULT_COMPOSITE_WEIGHTS, NodeInput, QueryInput, QueryIntent, ScorerType,
-        scorer_needs_llm,
+        DEFAULT_COMPOSITE_WEIGHTS, ScorerType, scorer_needs_llm,
     )
     from hcrag_tpu_torch.ops import scoring_cuda as sc
     from hcrag_tpu_torch.pipeline import isrelevant as isr
@@ -811,19 +1162,7 @@ def path_r(dev, card, rec) -> None:
     from hcrag_tpu_torch.utils.bounds import scoring_work
 
     t0 = time.time()
-    rng = np.random.default_rng(12)
-    words = np.array(["red", "road", "bike", "frame", "manual", "helmet", "chain", "the"])
-    types = ["product", "document", "specification", "annotation", "category", "unknown"]
-    ents = [f"ent{i}" for i in range(256)]  # 256 entities: 8 bit words
-    embs = rng.standard_normal((R_NODES, DIM)).astype(np.float32)
-    n_ents = rng.integers(0, 5, R_NODES)
-    ent_ids = rng.integers(0, 256, (R_NODES, 4))
-    text_ids = rng.integers(0, len(words), (R_NODES, 6))
-    nodes = [NodeInput(" ".join(words[text_ids[i]]), embs[i], {}, types[i % 6],
-                       [ents[j] for j in ent_ids[i, :n_ents[i]]])
-             for i in range(R_NODES)]
-    query = QueryInput("red road bike frame", rng.standard_normal(DIM).astype(np.float32),
-                       ["ent3", "ent17", "ent200"], QueryIntent.PRODUCT_SEARCH)
+    query, nodes = r_inputs(R_NODES)
     client = LLMClient(RuntimeConfig(llm_base_url=""))
     scorers = (ScorerType.COMPOSITE, ScorerType.PARALLEL, ScorerType.ROUTER,
                ScorerType.ROUTER_ALL, ScorerType.ROUTER_TWO_SEM_LLM,
@@ -1047,6 +1386,7 @@ def main() -> int:
     max_err.update(float_tile_topk=0.0, float_packed_tile_topk=0.0)
     phase_float_kernels(dev, max_err)
     phase_scoring_kernels(dev, max_err)
+    phase_super_kernels(dev, max_err)
     rec = Record(max_err)
 
     # 4-7. the paths over one 1M-row index --------------------------------------
@@ -1062,10 +1402,15 @@ def main() -> int:
     free("int8")
     path_f2(index, graph, queries, ref, dev, card, rec)
     free("F2")
+    for label in ("S1", "S2"):
+        path_super(label, index, graph, queries, ref, dev, card, rec)
+        free(label)
     f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
     f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
     path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)
     free("F1")
+    path_x(index, queries, dev, card, rec)
+    free("X")
     round_to_bf16(index.emb)
     path_d3(index, graph, queries, ref, dev, card, rec)
     free("D3")
@@ -1073,6 +1418,7 @@ def main() -> int:
 
     # 8. relevance scoring --------------------------------------------------
     path_r(dev, card, rec)
+    path_r_routes(dev, card)
     free("R")
 
     # 9-10. the density paths over one 10M-row index ---------------------------
@@ -1087,6 +1433,8 @@ def main() -> int:
         f"{time.time() - t0:.1f} s")
     path_d1(index, graph, d_queries, ref, dev, card, rec)
     free("D1")
+    path_super("S3", index, graph, d_queries, ref, dev, card, rec, n_rows=N_10M)
+    free("S3")
     t0 = time.time()
     round_to_bf16(index.emb)
     log(f"[setup] {N_10M} rows rounded to bf16 in {time.time() - t0:.1f} s (host)")

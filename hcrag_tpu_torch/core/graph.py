@@ -1,7 +1,8 @@
 """CsrGraph — the property graph as host arrays.
 
 Counterpart of `hcrag_tpu/core/graph.py` (the part the batched query step
-needs: `CsrGraph.from_edges`, `CsrGraph.to_ell` and `EllAdjacency`).  The
+needs: `CsrGraph.from_edges`, `CsrGraph.to_ell`, `CsrGraph.neighbors_of`
+and `EllAdjacency`).  The
 graph is built and lowered on the host with numpy; the engine uploads the
 padded ELL neighbor tables to the device.
 
@@ -13,7 +14,7 @@ padded ELL neighbor tables to the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +53,11 @@ class CsrGraph:
     @property
     def num_nodes(self) -> int:
         return len(self.node_labels)
+
+    def neighbors_of(self, node: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(neighbor ids, edge types) of `node`'s edges in creation order."""
+        sl = slice(self.row_ptr[node], self.row_ptr[node + 1])
+        return self.col_idx[sl], self.edge_type[sl]
 
     @classmethod
     def from_edges(

@@ -1,5 +1,6 @@
-// float_tile_topk — kernels B4 and B5 of the port: float cosine scores and
-// the top-k of every index tile, over an f32 or a bf16 bank.
+// float_tile_topk — kernels B4, B5 and B7f of the port: float cosine scores
+// and the top-k of every index tile (B4, B5) or supertile (B7f), over an f32
+// or a bf16 bank.
 //
 // B4, `float_tile_topk`, replaces `_topk_tile_kernel`
 // (hcrag_tpu/ops/topk_pallas.py), launched by
@@ -30,6 +31,19 @@
 // idx = t * tile_n + 2047 - (key & 0x7FF); a key <= 0 (masked row, row past
 // n, no row left) decodes to the filler (-1e30, -1).  The shifts use
 // __fadd_rn (and the build passes --fmad=false).
+//
+// B7f, `float_packed_super_tile_topk`, replaces
+// `_topk_tile_kernel_packed_super` (topk_pallas.py), launched by
+// `pallas_cosine_top_k(super_tiles > 1)`: B5's contract over a supertile of
+// lbits = spt * tile_n rows (a power of two from 128 to 8192) with a lane
+// field that wide, key = (bits(s) & ~(lbits - 1)) | (lbits - 1 - r) for row r
+// of supertile t, decoding to idx = t * lbits + lbits - 1 - (key & (lbits - 1)).
+// The TPU kernel keeps T candidates per 128-row lane and can drop a row that
+// shares its lane with T better ones; this kernel keeps the exact top k_sub.
+// It is B5's kernel with the supertile as its tile and this key policy.  At
+// the supertile path S1 (B = 8192 over 1,007,616 bf16 rows) it does B5's
+// 6.3e12 operations (6.4 ms at the bf16 tensor-core rate), bound by
+// operations.
 //
 // The dot: for a bf16 bank the caller passes bf16 queries (the TPU kernel
 // casts the query to the bank's type); both are widened to f32, where the
@@ -74,7 +88,6 @@ constexpr int Q_PER_WARP = QB / WARPS;
 constexpr int KEY_STRIDE = 68;  // keys per query row of the key buffer
 constexpr int MAX_K = tile_select::MAX_K;
 constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
-constexpr int MAX_TILE = 2048;    // B5's lane field has 11 bits; B4 keeps the same tiles
 
 // B4's key: order-preserving score bits | ~row.  Masked rows never enter
 // the list; its empty slots decode to the tile's -1e30 fill.
@@ -119,6 +132,27 @@ struct PackedKey {
   }
 };
 
+// B7f's key: B5's packed key with an lbits-wide lane field; `lmask` is
+// lbits - 1.
+struct SuperKey {
+  using Key = int;
+  int lmask;
+  __device__ static Key filler() { return 0; }
+  __device__ Key make(float dot, bool valid, int row) const {
+    const float s = __fadd_rn(dot, valid ? 2.0f : -3.0f);
+    return (__float_as_int(s) & ~lmask) | (lmask - row);
+  }
+  __device__ void decode(Key key, int tile_base, float* v, int* i) const {
+    if (key > 0) {
+      *v = __fsub_rn(__int_as_float(key & ~lmask), 2.0f);
+      *i = tile_base + lmask - (key & lmask);
+    } else {
+      *v = -1e30f;
+      *i = -1;
+    }
+  }
+};
+
 // Eight consecutive values of a row, widened to f32 (16-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -153,7 +187,8 @@ __global__ void __launch_bounds__(THREADS)
 float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
                        const uint8_t* __restrict__ mask,
                        float* __restrict__ out_v, int* __restrict__ out_i,
-                       int b, int n, int d, int k, int tile_n, int tiles) {
+                       int b, int n, int d, int k, int tile_n, int tiles,
+                       const K policy) {
   using Key = typename K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
   const int q_stride = d + 4;  // padded rows spread the shared banks
@@ -237,7 +272,7 @@ float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
         const int vs = valid_s[r];
         // Rows past the tile's end never enter a list.
         keys[(tq * 4 + i) * KEY_STRIDE + r] =
-            vs < 0 ? K::filler() : K::make(acc[i][j], vs != 0, sub + r);
+            vs < 0 ? K::filler() : policy.make(acc[i][j], vs != 0, sub + r);
       }
     __syncthreads();
 
@@ -251,17 +286,19 @@ float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
     const Key* L = lists + qq * k;
     for (int j = lane; j < k; j += 32) {
       const size_t o = ((size_t)gq * tiles + tile) * k + j;
-      K::decode(L[j], tile_base, out_v + o, out_i + o);
+      policy.decode(L[j], tile_base, out_v + o, out_i + o);
     }
   }
 }
 
+// `max_tile` is 2048 for B4 and B5 (B5's lane field has 11 bits; B4 keeps
+// the same tiles) and 8192 for B7f.
 template <typename T, typename K>
-int launch(const void* q, const void* e, const void* mask, void* out_v,
-           void* out_i, int b, int n, int d, int k, int tile_n,
-           void* stream) {
+int launch(const K policy, const void* q, const void* e, const void* mask,
+           void* out_v, void* out_i, int b, int n, int d, int k, int tile_n,
+           int max_tile, void* stream) {
   if (b <= 0 || n <= 0 || d <= 0 || d % DC != 0 || k < 1 || k > MAX_K ||
-      k > tile_n || tile_n % RB != 0 || tile_n > MAX_TILE)
+      k > tile_n || tile_n % RB != 0 || tile_n > max_tile)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile_n - 1) / tile_n;
   const size_t smem = smem_bytes(d, k, sizeof(typename K::Key));
@@ -273,8 +310,19 @@ int launch(const void* q, const void* e, const void* mask, void* out_v,
   const dim3 grid((b + QB - 1) / QB, tiles);
   float_tile_topk_kernel<T, K><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)e, (const uint8_t*)mask, (float*)out_v,
-      (int*)out_i, b, n, d, k, tile_n, tiles);
+      (int*)out_i, b, n, d, k, tile_n, tiles, policy);
   return (int)cudaGetLastError();
+}
+
+template <typename K>
+int launch_typed(const K policy, const void* q, const void* e,
+                 const void* mask, void* out_v, void* out_i, int b, int n,
+                 int d, int k, int tile_n, int max_tile, int bf16,
+                 void* stream) {
+  return bf16 ? launch<__nv_bfloat16>(policy, q, e, mask, out_v, out_i, b, n,
+                                      d, k, tile_n, max_tile, stream)
+              : launch<float>(policy, q, e, mask, out_v, out_i, b, n, d, k,
+                              tile_n, max_tile, stream);
 }
 
 }  // namespace
@@ -282,23 +330,31 @@ int launch(const void* q, const void* e, const void* mask, void* out_v,
 // C entry points, bound with ctypes.  Pointers are device pointers:
 //   q [b, d] and e [n, d], both f32 (bf16 == 0) or both bf16 (bf16 != 0),
 //   mask [n] bool (one byte each), out_v [b, tiles, k] f32,
-//   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n).
+//   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n) (B7f: the
+//   supertiles, ceil(n / lbits)).
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int float_tile_topk(const void* q, const void* e, const void* mask,
                                void* out_v, void* out_i, int b, int n, int d,
                                int k, int tile_n, int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, ExactKey>(q, e, mask, out_v, out_i, b,
-                                                n, d, k, tile_n, stream)
-              : launch<float, ExactKey>(q, e, mask, out_v, out_i, b, n, d, k,
-                                        tile_n, stream);
+  return launch_typed(ExactKey{}, q, e, mask, out_v, out_i, b, n, d, k, tile_n,
+                      2048, bf16, stream);
 }
 
 extern "C" int float_packed_tile_topk(const void* q, const void* e,
                                       const void* mask, void* out_v,
                                       void* out_i, int b, int n, int d, int k,
                                       int tile_n, int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, PackedKey>(q, e, mask, out_v, out_i, b,
-                                                 n, d, k, tile_n, stream)
-              : launch<float, PackedKey>(q, e, mask, out_v, out_i, b, n, d,
-                                         k, tile_n, stream);
+  return launch_typed(PackedKey{}, q, e, mask, out_v, out_i, b, n, d, k,
+                      tile_n, 2048, bf16, stream);
+}
+
+extern "C" int float_packed_super_tile_topk(const void* q, const void* e,
+                                            const void* mask, void* out_v,
+                                            void* out_i, int b, int n, int d,
+                                            int k, int lbits, int bf16,
+                                            void* stream) {
+  if (lbits < 128 || (lbits & (lbits - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_typed(SuperKey{lbits - 1}, q, e, mask, out_v, out_i, b, n, d,
+                      k, lbits, 8192, bf16, stream);
 }

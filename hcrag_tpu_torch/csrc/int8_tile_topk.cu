@@ -1,5 +1,5 @@
-// int8_tile_topk — kernels B1 and B3 of the port: int8 cosine scores and the
-// exact top-k of every index tile.
+// int8_tile_topk — kernels B1, B3 and B7i of the port: int8 cosine scores
+// and the exact top-k of every index tile (B1, B3) or supertile (B7i).
 //
 // Both replace `_topk_tile_kernel_int8` (hcrag_tpu/ops/topk_pallas.py),
 // launched by `pallas_cosine_top_k_int8`.  For query b and row n of tile t
@@ -29,6 +29,24 @@
 // 2^24, so fp32(dot) is exact and both kernels equal their plain PyTorch
 // versions bit for bit.  The rescale and shifts use __fmul_rn / __fadd_rn
 // (and the build passes --fmad=false): an FMA would change the bits.
+//
+// B7i, `int8_super_tile_topk`, replaces `_topk_tile_kernel_int8_super`
+// (topk_pallas.py), launched by `pallas_cosine_top_k_int8(super_tiles > 1)`:
+// B1's contract over a supertile of lbits = spt * tile_n rows (a power of
+// two from 128 to 8192), with a lane field that wide,
+//
+//   key = (bits(s + (mask[n] ? 2.0 : -3.0)) & ~(lbits - 1)) | (lbits - 1 - r)
+//
+// for row r of supertile t, decoding to val = float(key & ~(lbits - 1)) - 2.0
+// and idx = t * lbits + lbits - 1 - (key & (lbits - 1)).  The TPU kernel keeps
+// only T candidates per 128-row lane of the supertile and can drop a row that
+// shares its lane with T better ones; this kernel keeps the exact top k_sub.
+// It is B1's kernel with the supertile as its tile and this key policy, so
+// one block streams lbits rows, and each query writes k_sub candidates per
+// supertile instead of k per 2048-row tile.  Its work is B1's: at the
+// supertile paths (B = 8192 over 1,007,616 rows; B = 2048 over 10,002,432)
+// 6.3e12 and 1.57e13 int8 operations, 3.2 and 7.9 ms at the tensor-core
+// peak, far above the bytes it moves; bound by operations, like B1.
 //
 // What bounds them on an H100: at the int8 path's shape (B = 8192 queries,
 // N = 1,001,472 rows, D = 384) B1 does 2*B*N*D = 6.3e12 int8 operations
@@ -93,6 +111,27 @@ struct PackedKey {
   }
 };
 
+// B7i's key: B1's packed key with an lbits-wide lane field; `lmask` is
+// lbits - 1.
+struct SuperKey {
+  using Key = int;
+  int lmask;
+  __device__ static Key filler() { return 0; }
+  __device__ Key make(int dot, float qs, float es, int vs, int row) const {
+    const float s = __fadd_rn(rescaled(dot, qs, es), vs > 0 ? 2.0f : -3.0f);
+    return (__float_as_int(s) & ~lmask) | (lmask - row);
+  }
+  __device__ void decode(Key key, int tile_base, float* v, int* i) const {
+    if (key > 0) {
+      *v = __fsub_rn(__int_as_float(key & ~lmask), 2.0f);
+      *i = tile_base + lmask - (key & lmask);
+    } else {
+      *v = -1e30f;
+      *i = -1;
+    }
+  }
+};
+
 // B3e's key: order-preserving score bits | ~row.  Masked rows and rows past
 // n never enter the list; its empty slots decode to the tile's -1e30 fill.
 struct ExactKey {
@@ -130,7 +169,8 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
                       const float* __restrict__ e_scale,
                       const uint8_t* __restrict__ mask,
                       float* __restrict__ out_v, int* __restrict__ out_i,
-                      int b, int n, int d, int k, int tile_n, int tiles) {
+                      int b, int n, int d, int k, int tile_n, int tiles,
+                      const K policy) {
   using Key = typename K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
   const int row_bytes = d + 16;  // padded rows spread the shared banks
@@ -213,7 +253,7 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int qq = tq * 4 + i, r = tr + 16 * j;
         keys[qq * KEY_STRIDE + r] =
-            K::make(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r], sub + r);
+            policy.make(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r], sub + r);
       }
     __syncthreads();
 
@@ -227,17 +267,18 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
     const Key* L = lists + qq * k;
     for (int j = lane; j < k; j += 32) {
       const size_t o = ((size_t)gq * tiles + tile) * k + j;
-      K::decode(L[j], tile_base, out_v + o, out_i + o);
+      policy.decode(L[j], tile_base, out_v + o, out_i + o);
     }
   }
 }
 
+// `max_tile` is 2048 for B1 and B3e (11-bit lane field) and 8192 for B7i.
 template <typename K>
-int launch(const void* q, const void* q_scale, const void* e,
+int launch(const K policy, const void* q, const void* q_scale, const void* e,
            const void* e_scale, const void* mask, void* out_v, void* out_i,
-           int b, int n, int d, int k, int tile_n, void* stream) {
+           int b, int n, int d, int k, int tile_n, int max_tile, void* stream) {
   if (b <= 0 || n <= 0 || d <= 0 || d % 16 != 0 || k < 1 || k > MAX_K ||
-      k > tile_n || tile_n % RB != 0 || tile_n > 2048)
+      k > tile_n || tile_n % RB != 0 || tile_n > max_tile)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile_n - 1) / tile_n;
   const size_t smem = smem_bytes(d, k, sizeof(typename K::Key));
@@ -250,7 +291,7 @@ int launch(const void* q, const void* q_scale, const void* e,
   int8_tile_topk_kernel<K><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int8_t*)q, (const float*)q_scale, (const int8_t*)e,
       (const float*)e_scale, (const uint8_t*)mask, (float*)out_v,
-      (int*)out_i, b, n, d, k, tile_n, tiles);
+      (int*)out_i, b, n, d, k, tile_n, tiles, policy);
   return (int)cudaGetLastError();
 }
 
@@ -259,15 +300,16 @@ int launch(const void* q, const void* q_scale, const void* e,
 // C entry points, bound with ctypes.  Pointers are device pointers:
 //   q [b, d] int8, q_scale [b] f32, e [n, d] int8, e_scale [n] f32,
 //   mask [n] bool (one byte each), out_v [b, tiles, k] f32,
-//   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n).
+//   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n) (B7i: the
+//   supertiles, ceil(n / lbits)).
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int int8_tile_topk(const void* q, const void* q_scale,
                               const void* e, const void* e_scale,
                               const void* mask, void* out_v, void* out_i,
                               int b, int n, int d, int k, int tile_n,
                               void* stream) {
-  return launch<PackedKey>(q, q_scale, e, e_scale, mask, out_v, out_i, b, n,
-                           d, k, tile_n, stream);
+  return launch(PackedKey{}, q, q_scale, e, e_scale, mask, out_v, out_i, b, n,
+                d, k, tile_n, 2048, stream);
 }
 
 extern "C" int int8_exact_tile_topk(const void* q, const void* q_scale,
@@ -275,6 +317,17 @@ extern "C" int int8_exact_tile_topk(const void* q, const void* q_scale,
                                     const void* mask, void* out_v,
                                     void* out_i, int b, int n, int d, int k,
                                     int tile_n, void* stream) {
-  return launch<ExactKey>(q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d,
-                          k, tile_n, stream);
+  return launch(ExactKey{}, q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d,
+                k, tile_n, 2048, stream);
+}
+
+extern "C" int int8_super_tile_topk(const void* q, const void* q_scale,
+                                    const void* e, const void* e_scale,
+                                    const void* mask, void* out_v,
+                                    void* out_i, int b, int n, int d, int k,
+                                    int lbits, void* stream) {
+  if (lbits < 128 || (lbits & (lbits - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch(SuperKey{lbits - 1}, q, q_scale, e, e_scale, mask, out_v,
+                out_i, b, n, d, k, lbits, 8192, stream);
 }

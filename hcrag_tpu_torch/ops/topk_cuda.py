@@ -1,7 +1,7 @@
 """Fused cosine + top-k over the index, with its CUDA kernels.
 
-Counterpart of `pallas_cosine_top_k_int8`, `pallas_cosine_top_k` (its
-non-supertile branch) and `_merge_tile_candidates`
+Counterpart of `pallas_cosine_top_k_int8`, `pallas_cosine_top_k`,
+`_merge_tile_candidates` and `_merge_super_candidates`
 (hcrag_tpu/ops/topk_pallas.py):
 
   * `int8_tile_topk` (kernel B1, csrc/int8_tile_topk.cu) — int8 dots,
@@ -18,7 +18,12 @@ non-supertile branch) and `_merge_tile_candidates`
     dots, additive mask and the exact top-k of every tile by raw value, ties
     to the lowest row;
   * `float_packed_tile_topk` (kernel B5, csrc/float_tile_topk.cu) — B1's
-    packed-key selection over a float dot.
+    packed-key selection over a float dot;
+  * `int8_super_tile_topk` and `float_packed_super_tile_topk` (kernel B7,
+    csrc/int8_tile_topk.cu and csrc/float_tile_topk.cu) — B1's and B5's
+    selections over supertiles of up to 8192 rows, under a packed key whose
+    lane field is as wide as the supertile; `merge_super_candidates` merges
+    their pools (kernel B2, or a stable sort in slot-major order).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version, defined beside it, for CPU tensors.  Each counts its
@@ -37,9 +42,12 @@ from hcrag_tpu_torch.ops.quantize import check_exact_matmul, quantize_queries
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 
 NEG_INF = -1e30
-LANE_MASK = 0x7FF  # the 11 low bits of a packed key hold 2047 - lane
+LANE_BITS = 2048  # B1/B5: the 11 low bits of a packed key hold 2047 - lane
+LANE_MASK = LANE_BITS - 1
 MAX_TILE_K = 128
+MAX_SUPER_ROWS = 8192  # B7: a supertile's lane field holds at most 13 bits
 PACKED_MERGE_MIN_POOL = 2 * 2048  # smaller pools take the stable sort
+PACKED_SUPER_MERGE_MIN_POOL = 1024  # the same for supertile pools
 _INT32_MIN = -(2**31)
 _INT64_MIN = -(2**63)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
@@ -49,14 +57,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "int8_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "int8_exact_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
+    "int8_super_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "packed_candidate_merge": (_VP,) * 5 + (_I,) * 5 + (_VP,),
     "float_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    "float_packed_super_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
 }
 _SOURCES = {  # entry point -> csrc/<source>.cu, where the two differ
     "int8_exact_tile_topk": "int8_tile_topk",
-    "float_tile_topk": "float_tile_topk",
+    "int8_super_tile_topk": "int8_tile_topk",
     "float_packed_tile_topk": "float_tile_topk",
+    "float_packed_super_tile_topk": "float_tile_topk",
 }
 
 
@@ -101,6 +112,52 @@ def _int8_scores(
         yield lo, hi, s * e_scale[None, :]
 
 
+def _mask_shift(mask: torch.Tensor) -> torch.Tensor:
+    """The packed key's shift: +2 where the mask is set, -3 where not."""
+    dev = mask.device
+    return torch.where(mask, torch.tensor(2.0, device=dev), torch.tensor(-3.0, device=dev))
+
+
+def _packed_tile_select(scores, b: int, n: int, k: int, tile_n: int, lane_bits: int,
+                        dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact top-k of every `tile_n`-row tile under the packed key, over
+    score chunks (lo, hi, s [hi - lo, N] f32, the mask's shift included):
+
+      key = (bits(s) & ~(lane_bits - 1)) | (lane_bits - 1 - row_in_tile)
+
+    as int32.  The k largest keys decode to value float(key & ~(lane_bits -
+    1)) - 2.0 and index tile * tile_n + lane_bits - 1 - (key & (lane_bits -
+    1)); a key <= 0 (masked row, row past n, no row left) to (-1e30, -1).
+    B1 and B5 take lane_bits 2048 over tiles of at most 2048 rows, B7 a
+    supertile of lane_bits rows.  Returns (vals, idx) [b, tiles, k]."""
+    lmask = lane_bits - 1
+    tiles = -(-n // tile_n)
+    pad = tiles * tile_n - n
+    lane = (lmask - torch.arange(tile_n, dtype=torch.int32, device=dev)).repeat(tiles)[:n]
+    base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
+    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+    for lo, hi, s in scores:
+        keys = (s.view(torch.int32) & ~lmask) | lane
+        if pad:
+            keys = torch.nn.functional.pad(keys, (0, pad), value=_INT32_MIN)
+        top = keys.view(hi - lo, tiles, tile_n).topk(k, dim=2).values  # unique keys
+        valid = top > 0
+        val = (top & ~lmask).view(torch.float32) - 2.0
+        idx = lmask - (top & lmask) + base
+        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
+        out_i[lo:hi] = torch.where(valid, idx, -1)
+    return out_v, out_i
+
+
+def _int8_packed_plain(q8, q_scale, e8, e_scale, mask, k, tile_n, lane_bits):
+    offs = _mask_shift(mask)[None, :]
+    scores = ((lo, hi, s + offs)
+              for lo, hi, s in _int8_scores(q8, q_scale, e8, e_scale, tile_n, 1 << 29))
+    return _packed_tile_select(scores, q8.shape[0], e8.shape[0], k, tile_n, lane_bits,
+                               q8.device)
+
+
 def int8_tile_topk_plain(
     q8: torch.Tensor,
     q_scale: torch.Tensor,
@@ -114,42 +171,30 @@ def int8_tile_topk_plain(
 
     q8 [B, D] int8, q_scale [B] f32, e8 [N, D] int8, e_scale [N] f32,
     mask [N] bool -> (vals [B, tiles, k] f32, idx [B, tiles, k] int32), the
-    exact top-k of every `tile_n`-row tile under the packed key; fillers
+    exact top-k of every `tile_n`-row tile under the packed key (lane field
+    2047 - row_in_tile, `_packed_tile_select`) of the shifted score
+    s = (fp32(q8 . e8) * q_scale) * e_scale + (2 if mask else -3); fillers
     (-1e30, -1).  Queries go in chunks that keep the [chunk, N] score
     buffers near 2 GiB."""
-    b = q8.shape[0]
-    n = e8.shape[0]
-    dev = q8.device
-    tiles = -(-n // tile_n)
-    pad = tiles * tile_n - n
-    offs = torch.where(
-        mask,
-        torch.tensor(2.0, device=dev),
-        torch.tensor(-3.0, device=dev),
-    )
-    lane = (
-        2047 - torch.arange(tile_n, dtype=torch.int32, device=dev)
-    ).repeat(tiles)
-    base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
-    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    for lo, hi, s in _int8_scores(q8, q_scale, e8, e_scale, tile_n, 1 << 29):
-        s = s + offs[None, :]
-        bits = s.view(torch.int32) & ~LANE_MASK
-        if pad:
-            bits = torch.nn.functional.pad(bits, (0, pad), value=_INT32_MIN)
-        keys = (bits | lane).view(hi - lo, tiles, tile_n)
-        top = keys.topk(k, dim=2).values  # keys are unique within a tile
-        valid = top > 0
-        val = (top & ~LANE_MASK).view(torch.float32) - 2.0
-        idx = 2047 - (top & LANE_MASK) + base
-        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
-        out_i[lo:hi] = torch.where(valid, idx, -1)
-    return out_v, out_i
+    return _int8_packed_plain(q8, q_scale, e8, e_scale, mask, k, tile_n, LANE_BITS)
 
 
-def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n):
-    """Check the operands of kernel B1 or B3e and launch it."""
+def _check_tiles(tile_n: int, k: int, super_rows: bool) -> None:
+    """A tile of 64 to 2048 rows (a multiple of 64), or a supertile of a
+    power of two from 128 to 8192 rows; a per-tile k of 1 to 128."""
+    if super_rows:
+        if tile_n & (tile_n - 1) or not 128 <= tile_n <= MAX_SUPER_ROWS:
+            raise ValueError(f"lbits must be a power of two in [128, {MAX_SUPER_ROWS}], "
+                             f"got {tile_n}")
+    elif tile_n % 64 or not 64 <= tile_n <= 2048:
+        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
+    if not 1 <= k <= min(MAX_TILE_K, tile_n):
+        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+
+
+def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
+                 super_rows=False):
+    """Check the operands of kernel B1, B3e or B7i and launch it."""
     _require_cuda(q8, "q8")
     b, d = q8.shape
     n = e8.shape[0]
@@ -163,10 +208,7 @@ def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n):
         raise ValueError(f"{name} needs at least one query and one row")
     if d % 16 or q8.data_ptr() % 16 or e8.data_ptr() % 16:
         raise ValueError("rows must be 16-byte multiples on 16-byte boundaries")
-    if tile_n % 64 or not 64 <= tile_n <= 2048:
-        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
-    if not 1 <= k <= min(MAX_TILE_K, tile_n):
-        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+    _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
     # Query and row blocks, key buffer and lists, scales and row flags
     # (csrc/int8_tile_topk.cu).
@@ -347,10 +389,7 @@ def _float_tiles(q, e, mask, tile_n, packed):
     (B5: plus 2 where the mask is set, -3 where not), f32 [hi - lo, N]."""
     check_exact_matmul()
     b, n = q.shape[0], e.shape[0]
-    dev = q.device
-    offs = torch.where(
-        mask, torch.tensor(2.0, device=dev), torch.tensor(-3.0, device=dev)
-    )
+    offs = _mask_shift(mask)
     e_f = e.to(torch.float32)
     tiles = -(-n // tile_n)
     chunk = max(1, (1 << 28) // (tiles * tile_n))
@@ -424,31 +463,12 @@ def float_packed_tile_topk_plain(
     `tile_n`-row tile under the packed key (bits(s) & ~0x7FF) | (2047 -
     lane), s = q.e + (2 if mask else -3); values decode as the key's score
     minus 2, masked rows and empty slots are fillers (-1e30, -1)."""
-    b, n = q.shape[0], e.shape[0]
-    dev = q.device
-    tiles = -(-n // tile_n)
-    pad = tiles * tile_n - n
-    lane = (2047 - torch.arange(tile_n, dtype=torch.int32, device=dev)).repeat(
-        tiles
-    )[:n]
-    base = (torch.arange(tiles, dtype=torch.int32, device=dev) * tile_n)[:, None]
-    out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-    for lo, hi, s in _float_tiles(q, e, mask, tile_n, packed=True):
-        keys = (s.view(torch.int32) & ~LANE_MASK) | lane
-        if pad:
-            keys = torch.nn.functional.pad(keys, (0, pad), value=_INT32_MIN)
-        top = keys.view(hi - lo, tiles, tile_n).topk(k, dim=2).values
-        valid = top > 0
-        val = (top & ~LANE_MASK).view(torch.float32) - 2.0
-        idx = 2047 - (top & LANE_MASK) + base
-        out_v[lo:hi] = torch.where(valid, val, NEG_INF)
-        out_i[lo:hi] = torch.where(valid, idx, -1)
-    return out_v, out_i
+    return _packed_tile_select(_float_tiles(q, e, mask, tile_n, packed=True), q.shape[0],
+                               e.shape[0], k, tile_n, LANE_BITS, q.device)
 
 
-def _float_launch(name, key_bytes, q, e, mask, k, tile_n):
-    """Check the operands of kernel B4 or B5 and launch it."""
+def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
+    """Check the operands of kernel B4, B5 or B7f and launch it."""
     _require_cuda(q, "q")
     b, d = q.shape
     n = e.shape[0]
@@ -462,10 +482,7 @@ def _float_launch(name, key_bytes, q, e, mask, k, tile_n):
         raise ValueError(f"{name} needs at least one query and one row")
     if d % 64 or q.data_ptr() % 16 or e.data_ptr() % 16:
         raise ValueError("rows must be multiples of 64 values on 16-byte boundaries")
-    if tile_n % 64 or not 64 <= tile_n <= 2048:
-        raise ValueError(f"tile_n must be a multiple of 64 in [64, 2048], got {tile_n}")
-    if not 1 <= k <= min(MAX_TILE_K, tile_n):
-        raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
+    _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
     # Query block, staged rows, key buffer and lists (csrc/float_tile_topk.cu).
     smem = 4 * (64 * (d + 4) + 64 * 68) + key_bytes * 64 * (68 + k) + 4 * 64
@@ -519,6 +536,142 @@ float_packed_tile_topk.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel B7: per-supertile top-k over an int8 or a float bank
+# ---------------------------------------------------------------------------
+def resolve_super_tiles(super_tiles: int, tile_n: int, n_pad_tiles: int,
+                        two_level: bool = True, packed_select: bool = True) -> int:
+    """The supertile factor a selection runs (`_resolve_super_tiles`):
+    1 unless the packed two-level selection is asked for; else the floor
+    power of two of `super_tiles`, halved until a supertile spans at most
+    8192 rows and at most the bank's `n_pad_tiles` tiles."""
+    if super_tiles <= 1 or not (two_level and packed_select):
+        return 1
+    spt = 1 << (int(super_tiles).bit_length() - 1)
+    while spt > 1 and spt * tile_n > MAX_SUPER_ROWS:
+        spt //= 2
+    while spt > 1 and spt > n_pad_tiles:
+        spt //= 2
+    return spt
+
+
+def super_pick_count(top_k: int, n: int, lbits: int, merge_k: int) -> int:
+    """Picks per supertile: min(top_k, n) rounded up to 8, raised to
+    min(128, ceil(merge_k / supertiles) rounded up to 8) when the
+    supertiles are too few for the pool to cover merge_k."""
+    def round_up_8(x: int) -> int:
+        return -(-x // 8) * 8
+
+    k_sub = round_up_8(min(top_k, n))
+    num_super = -(-n // lbits)
+    if merge_k > num_super * k_sub:
+        k_sub = min(MAX_TILE_K, round_up_8(-(-merge_k // num_super)))
+    return k_sub
+
+
+def int8_super_tile_topk_plain(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    lbits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B7i (same contract, same bits).
+
+    Operands as `int8_tile_topk_plain`.  Returns (vals [B, S, k] f32,
+    idx [B, S, k] int32) with S = ceil(N / lbits): the exact top-k of every
+    `lbits`-row supertile s under the packed key of B1's shifted score with
+    an lbits-wide lane field,
+
+      key = (bits(s) & ~(lbits - 1)) | (lbits - 1 - row_in_supertile),
+
+    values decoded as float(key & ~(lbits - 1)) - 2.0 (2^-10 relative
+    quantization at 8192 rows), fillers (-1e30, -1).  The Pallas kernel
+    keeps only a few candidates per 128-row lane and so can drop a row that
+    shares its lane with better ones; this is the exact contract it
+    approximates."""
+    return _int8_packed_plain(q8, q_scale, e8, e_scale, mask, k, lbits, lbits)
+
+
+def int8_super_tile_topk(
+    q8: torch.Tensor,
+    q_scale: torch.Tensor,
+    e8: torch.Tensor,
+    e_scale: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    lbits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B7i for CUDA tensors, its plain version for CPU tensors (see
+    `int8_super_tile_topk_plain` for the contract)."""
+    if q8.device.type == "cpu":
+        return int8_super_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, lbits)
+    out = _int8_launch("int8_super_tile_topk", 4, q8, q_scale, e8, e_scale, mask, k,
+                       lbits, super_rows=True)
+    int8_super_tile_topk.launches += 1
+    return out
+
+
+int8_super_tile_topk.launches = 0
+
+
+def float_packed_super_tile_topk_plain(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int, lbits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel B7f (same contract; its f32 sums are
+    taken in another order, so a key can differ where a score lies within
+    rounding of a key-quantum boundary, as B5's can).
+
+    Operands as `float_packed_tile_topk_plain`.  Returns (vals [B, S, k]
+    f32, idx [B, S, k] int32): the exact top-k of every `lbits`-row
+    supertile under B5's shifted score with an lbits-wide lane field (see
+    `int8_super_tile_topk_plain`)."""
+    return _packed_tile_select(_float_tiles(q, e, mask, lbits, packed=True), q.shape[0],
+                               e.shape[0], k, lbits, lbits, q.device)
+
+
+def float_packed_super_tile_topk(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int, lbits: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B7f for CUDA tensors, its plain version for CPU tensors (see
+    `float_packed_super_tile_topk_plain` for the contract)."""
+    if q.device.type == "cpu":
+        return float_packed_super_tile_topk_plain(q, e, mask, k, lbits)
+    out = _float_launch("float_packed_super_tile_topk", 4, q, e, mask, k, lbits,
+                        super_rows=True)
+    float_packed_super_tile_topk.launches += 1
+    return out
+
+
+float_packed_super_tile_topk.launches = 0
+
+
+def uses_packed_super_merge(num_super: int, k_sub: int, out_k: int) -> bool:
+    """Whether the merge of a [num_super, k_sub] supertile pool goes
+    through kernel B2: pools of >= 1024 candidates with out_k <= 128, as
+    `_merge_super_candidates` routes them."""
+    return out_k <= MAX_TILE_K and num_super * k_sub >= PACKED_SUPER_MERGE_MIN_POOL
+
+
+def merge_super_candidates(
+    vals: torch.Tensor, idxs: torch.Tensor, k: int, merge_k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-supertile merge of [B, S, k_sub] candidates (B7's output) into
+    the top min(max(k, merge_k), S * k_sub), k the true top-k.  Large
+    pools go through kernel B2, which ranks ties by slot-major position
+    (slot * S + supertile) as it reads the pool; smaller ones take a stable
+    top-k over the slot-major order ([B, k_sub, S] flattened), as
+    `lax.top_k` after the Pallas merge's transpose does."""
+    b, num_super, k_sub = vals.shape
+    out_k = min(max(k, merge_k), num_super * k_sub)
+    if uses_packed_super_merge(num_super, k_sub, out_k):
+        return packed_candidate_merge(vals, idxs, out_k)
+    out_v, pos = stable_top_k(vals.transpose(1, 2).reshape(b, -1), out_k)
+    return out_v, torch.gather(idxs.transpose(1, 2).reshape(b, -1), 1, pos)
+
+
+# ---------------------------------------------------------------------------
 # The fused selections the query step calls
 # ---------------------------------------------------------------------------
 def uses_packed_merge(tiles: int, k: int, merge_k: int) -> bool:
@@ -555,6 +708,12 @@ def tile_pick_count(top_k: int, n: int, tile_n: int, merge_k: int) -> int:
     return k
 
 
+def _two_level_feasible(tile_n: int) -> bool:
+    """The Pallas kernels' shape guard on their two-level selection, which
+    supertiles need (`_use_two_level`; k <= 128 is checked on its own)."""
+    return tile_n >= 256 and tile_n % 128 == 0
+
+
 def _check_tile_k(top_k: int, n: int) -> int:
     k = min(top_k, n)
     if k > MAX_TILE_K:
@@ -575,10 +734,11 @@ def cosine_top_k_int8(
     tile_n: int = 2048,
     merge_k: int = 0,
     packed_select: bool = True,
+    super_tiles: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused int8 cosine + top-k of normalized queries [B, D] over an int8
     index [N, D] with row scales [N] and a row filter [N] bool; the
-    counterpart of `pallas_cosine_top_k_int8` without supertiles.
+    counterpart of `pallas_cosine_top_k_int8`.
 
     The queries are quantized per row.  `packed_select=True` (every engine
     mode): kernel B1 keeps the exact top-k of every `tile_n`-row tile under
@@ -590,11 +750,22 @@ def cosine_top_k_int8(
     slots are (-1e30, -1) fillers.  `packed_select=False`: kernel B3e keeps
     every tile's exact top-k by raw value (ties to the lowest row) and a
     stable merge keeps the global top max(top_k, merge_k) by (value desc,
-    index asc); filtered rows come back at -1e30.  Returns (values [B, m]
-    f32, indices [B, m] int32)."""
+    index asc); filtered rows come back at -1e30.  `super_tiles` > 1 with
+    the packed selection (`resolve_super_tiles`): kernel B7i keeps the
+    exact top k_sub (`super_pick_count`) of every supertile of
+    spt * tile_n rows under a key with a lane field that wide, and
+    `merge_super_candidates` merges them.  Returns (values [B, m] f32,
+    indices [B, m] int32)."""
     n = e_int8.shape[0]
     k = _check_tile_k(top_k, n)
     qi, qs = quantize_queries(query_emb.to(torch.float32))
+    spt = resolve_super_tiles(super_tiles, tile_n, -(-n // tile_n),
+                              _two_level_feasible(tile_n), packed_select)
+    if spt > 1:
+        lbits = spt * tile_n
+        k_sub = super_pick_count(top_k, n, lbits, merge_k)
+        vals, idxs = int8_super_tile_topk(qi, qs, e_int8, e_scale, valid_mask, k_sub, lbits)
+        return merge_super_candidates(vals, idxs, k, merge_k)
     if packed_select:
         k = tile_pick_count(top_k, n, tile_n, merge_k)
         vals, idxs = int8_tile_topk(qi, qs, e_int8, e_scale, valid_mask, k, tile_n)
@@ -612,10 +783,11 @@ def cosine_top_k(
     tile_n: int = 2048,
     merge_k: int = 0,
     packed_select: bool = False,
+    super_tiles: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused cosine + top-k of normalized queries [B, D] over a float index
     [N, D] (f32 or bf16) with a row filter [N] bool; the counterpart of
-    `pallas_cosine_top_k` without supertiles.
+    `pallas_cosine_top_k`.
 
     The queries are cast to a bf16 index's type.  `packed_select=False`:
     kernel B4 keeps the exact top-k of every tile by raw value and a stable
@@ -625,12 +797,21 @@ def cosine_top_k(
     carry its 2^-11 quantization), with the per-tile pick count raised when
     the tiles are too few to cover merge_k, and the merge goes through
     kernel B2 for pools of >= 4096.  Surplus slots are (-1e30, -1) fillers.
-    Returns (values [B, m] f32, indices [B, m] int32)."""
+    `super_tiles` > 1 with the packed selection: kernel B7f over supertiles
+    and `merge_super_candidates`, as in `cosine_top_k_int8`.  Returns
+    (values [B, m] f32, indices [B, m] int32)."""
     n = index_emb.shape[0]
     k = _check_tile_k(top_k, n)
     q = query_emb.to(
         torch.bfloat16 if index_emb.dtype == torch.bfloat16 else torch.float32
     )
+    spt = resolve_super_tiles(super_tiles, tile_n, -(-n // tile_n),
+                              _two_level_feasible(tile_n), packed_select)
+    if spt > 1:
+        lbits = spt * tile_n
+        k_sub = super_pick_count(top_k, n, lbits, merge_k)
+        vals, idxs = float_packed_super_tile_topk(q, index_emb, valid_mask, k_sub, lbits)
+        return merge_super_candidates(vals, idxs, k, merge_k)
     if packed_select:
         k_tile = tile_pick_count(top_k, n, tile_n, merge_k)
         vals, idxs = float_packed_tile_topk(q, index_emb, valid_mask, k_tile, tile_n)

@@ -18,9 +18,16 @@ its residency modes:
     rescore: its selection is the k-pass packed branch of kernel B3, whose
     contract B1 computes at per-tile k = top_k.
 
+With `pallas_super=s > 1` every rescored mode selects over supertiles
+(kernel B7, then the merge) for batches of 64 queries or more: the float
+path over 1024-row tiles grouped s at a time, the int8 path over 2048-row
+tiles, at most 8192 rows to a supertile; the bank is padded to a whole
+supertile at set-up, as the JAX engine pads it.
+
 One call of the step runs, in order: the selection above; the relevance
 metrics on the top-k rows (semantic, entity bitset popcount, intent x type
-priority, weighted reduction); the one-hop ELL graph expansion
+priority, weighted reduction); the ELL graph expansion to the requested
+depth, its second and later hops over the ANNOTATION-only table
 (`ops/expand.expand_batch_early_exit`); the scoring of the expanded nodes
 and the 0.7/0.3 blend of relevance and similarity.  `retrieve_batch_device`
 runs the selection alone; `find_similar_content`, `process_query` and
@@ -29,8 +36,7 @@ runs the selection alone; `find_similar_content`, `process_query` and
 The selections are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
 PyTorch on the engine's device.  Its f32 dot products are elementwise
 products and sums, so no TF32 / `float32_matmul_precision` setting changes
-them (the JAX engine pins `Precision.HIGHEST`).  Supertile selection
-(`pallas_super > 1`) raises NotImplementedError naming its ROADMAP.md item.
+them (the JAX engine pins `Precision.HIGHEST`).
 """
 
 from __future__ import annotations
@@ -70,14 +76,29 @@ from hcrag_tpu_torch.ops.quantize import quantize_bank
 from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 from hcrag_tpu_torch.ops.topk_cuda import (
+    MAX_SUPER_ROWS,
     cosine_top_k,
     cosine_top_k_int8,
+    resolve_super_tiles,
+    super_pick_count,
     tile_pick_count,
     uses_packed_merge,
+    uses_packed_super_merge,
 )
 from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER
 
 TILE_N = 2048  # index rows per tile: the packed key's lane field is 11 bits
+SUPER_FLOAT_TILE_N = 1024  # the float path's tile under supertiles
+SUPER_MIN_BATCH = 64  # smaller batches never take supertiles
+
+
+def _super_pad_multiple(n_rows: int, tile: int) -> int:
+    """The bank's row multiple under supertiles (`_super_pad_multiple`):
+    spt * tile, spt the floor power of two of min(8192 / tile, tiles of
+    the unpadded rows)."""
+    spt = min(max(1, MAX_SUPER_ROWS // tile), max(1, -(-n_rows // tile)))
+    return (1 << (spt.bit_length() - 1)) * tile
+
 
 _GRAPH_LABEL_TO_TYPE = {
     "Product": "product",
@@ -171,15 +192,13 @@ class QueryEngine:
         #: Float path: the oversample rescored from an f32 bank (0 = off;
         #: dropped to 0 below when the host index is not f32).
         self.exact_rescore = 0 if quantize_int8 else max(0, int(exact_rescore))
-        # Supertiles serve the rescored (packed) selections only.
-        if pallas_super > 1 and (self.int8_rescore > 0 or self.exact_rescore > 0):
-            raise NotImplementedError(
-                "supertile selection needs kernel B7 (ROADMAP.md B7)"
-            )
+        #: Supertile factor of the rescored (packed) selections; <= 1 is off.
+        self.pallas_super = int(pallas_super)
 
         put = self._put
         self._n_rows = np.asarray(index.emb).shape[0]
-        self._n_bank = -(-self._n_rows // TILE_N) * TILE_N
+        mult = self._row_pad_multiple()
+        self._n_bank = -(-self._n_rows // mult) * mult
         self._init_emb_banks(np.asarray(index.emb))
         self.d_type_ids = put(index.type_ids.astype(np.int32))
         self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
@@ -188,13 +207,20 @@ class QueryEngine:
         self.d_priority = put(PRIORITY_MATRIX)
 
         if graph is not None:
-            # One hop only: the JAX engine's second-hop (ANNOTATION) table
-            # comes with depth >= 2 (ROADMAP.md A5).
             if graph.edge_type_vocab is None:
                 ell = graph.to_ell(EXPANSION_EDGE_TYPES, max_degree=ell_max_degree)
+                self.d_neighbors = put(ell.neighbors)
+                # Hops after the first follow ANNOTATION edges only: the
+                # reference's depth-2 path is Product -> Document ->
+                # Annotation.
+                self.d_neighbors_hop2 = put(
+                    graph.to_ell(("ANNOTATION",), max_degree=ell_max_degree).neighbors
+                )
             else:
+                # A discovered-vocabulary graph has no such schema: every
+                # hop follows all relations, over the same table.
                 ell = graph.to_ell(max_degree=ell_max_degree)
-            self.d_neighbors = put(ell.neighbors)
+                self.d_neighbors = self.d_neighbors_hop2 = put(ell.neighbors)
             g_types = np.array(
                 [
                     node_type_id(_GRAPH_LABEL_TO_TYPE.get(lbl, "unknown"))
@@ -205,7 +231,7 @@ class QueryEngine:
             self.d_g_type_ids = put(g_types)
             self.d_g_row = put(graph.node_to_row.astype(np.int32))
         else:
-            self.d_neighbors = None
+            self.d_neighbors = self.d_neighbors_hop2 = None
             self.d_g_type_ids = None
             self.d_g_row = None
 
@@ -223,9 +249,18 @@ class QueryEngine:
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return _tensor(a).to(self.device)
 
+    def _row_pad_multiple(self) -> int:
+        """The bank's row multiple (`_row_pad_multiple`): one 2048-row
+        tile, or with supertiles on a rescored mode the widest supertile
+        the selection can resolve (decided before a non-f32 index drops
+        `exact_rescore`, as in the JAX engine)."""
+        if self.pallas_super > 1 and self._rescore_m() > 0:
+            return _super_pad_multiple(self._n_rows, TILE_N)
+        return TILE_N
+
     def _put_rows(self, a: np.ndarray) -> torch.Tensor:
-        """Host rows [N, D] on the device, padded with zero rows to a whole
-        number of tiles; pad rows are masked out of every selection."""
+        """Host rows [N, D] on the device, padded with zero rows to
+        `_n_bank` rows; pad rows are masked out of every selection."""
         t = self._put(a)
         pad = self._n_bank - t.shape[0]
         return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
@@ -287,6 +322,7 @@ class QueryEngine:
             bank["emb_res_scale"] = self.d_emb_res_scale
         if self.d_neighbors is not None:
             bank["neighbors"] = self.d_neighbors
+            bank["neighbors_hop2"] = self.d_neighbors_hop2
             bank["g_type_ids"] = self.d_g_type_ids
             bank["g_row"] = self.d_g_row
         return bank
@@ -311,6 +347,19 @@ class QueryEngine:
     # ------------------------------------------------------------------
     # Selection
     # ------------------------------------------------------------------
+    def _select_plan(self, batch: int) -> Tuple[int, int]:
+        """(tile rows, supertile factor) of a selection over `batch`
+        queries, as the JAX engine's `_local_select` resolves them: with a
+        rescore, `pallas_super > 1` and at least 64 queries, the float path
+        drops to 1024-row tiles and both paths group tiles into supertiles
+        (`resolve_super_tiles` against the padded bank's tile count, as the
+        kernel clamps); otherwise 2048-row tiles, no supertiles."""
+        if not (self._rescore_m() > 0 and self.pallas_super > 1
+                and batch >= SUPER_MIN_BATCH):
+            return TILE_N, 1
+        tile = TILE_N if self.quantize_int8 else SUPER_FLOAT_TILE_N
+        return tile, resolve_super_tiles(self.pallas_super, tile, -(-self._n_bank // tile))
+
     def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
         """The mode's selection kernel + merge over the bank: (values
         [B, m], row indices [B, m]) with m = max(top_k, fetch_k) candidates;
@@ -318,7 +367,8 @@ class QueryEngine:
         mode: with a rescore it stands for the JAX engine's fused two-level
         branch (whose exact contract it computes), without one for the
         k-pass branch; the calls differ only in merge_k, hence in the
-        per-tile pick count and the merge's out_k."""
+        per-tile pick count and the merge's out_k.  `_select_plan` gives
+        the tile and the supertiles."""
         m = max(top_k, fetch_k)
         merge_k = m if m > top_k else 0
         sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
@@ -327,14 +377,15 @@ class QueryEngine:
             type_mask = torch.cat(
                 [type_mask, torch.zeros(pad, dtype=torch.bool, device=type_mask.device)]
             )
+        tile, spt = self._select_plan(q_emb.shape[0])
         if self.quantize_int8:
             return cosine_top_k_int8(
                 q_emb, sel, bank["emb_scale"], type_mask, top_k,
-                tile_n=TILE_N, merge_k=merge_k,
+                tile_n=tile, merge_k=merge_k, super_tiles=spt,
             )
         return cosine_top_k(
-            q_emb, sel, type_mask, top_k, tile_n=TILE_N, merge_k=merge_k,
-            packed_select=self.exact_rescore > 0,
+            q_emb, sel, type_mask, top_k, tile_n=tile, merge_k=merge_k,
+            packed_select=self.exact_rescore > 0, super_tiles=spt,
         )
 
     def _rescore_m(self) -> int:
@@ -359,22 +410,35 @@ class QueryEngine:
 
     def resolved_kernel_config(self, batch: int, top_k: int = 10) -> Dict:
         """The selection strategy a `query_batch` of this shape runs.
-        `tile_k` is the per-tile pick count the kernel is launched with
-        (after the small-pool raise of the packed selections); `lane_t` is 0
-        and `two_level` False because every tile is selected exactly."""
+        `tile_k` is the per-tile (with supertiles: per-supertile) pick count
+        the kernel is launched with, after the small-pool raise of the
+        packed selections; `super_tiles` is the factor the kernel runs,
+        clamped against the padded bank (the JAX engine's report clamps
+        against the unpadded rows and can differ on small indexes); `lane_t`
+        is 0 and `two_level` False because every tile is selected
+        exactly."""
         m = self._rescore_m()
         merge_k = m if m > top_k else 0
         packed = self.quantize_int8 or self.exact_rescore > 0
         sel = self.d_emb_int8 if self.quantize_int8 else self.d_emb
         n_bank = int(sel.shape[0])
-        tiles = -(-n_bank // TILE_N)
-        if packed:
-            tile_k = tile_pick_count(top_k, n_bank, TILE_N, merge_k)
+        tile, spt = self._select_plan(batch)
+        tiles = -(-n_bank // tile)
+        if spt > 1:
+            lbits = spt * tile
+            tile_k = super_pick_count(top_k, n_bank, lbits, merge_k)
+            num_super = -(-n_bank // lbits)
+            out_k = min(max(min(top_k, n_bank), merge_k), num_super * tile_k)
+            packed_merge = uses_packed_super_merge(num_super, tile_k, out_k)
+        elif packed:
+            tile_k = tile_pick_count(top_k, n_bank, tile, merge_k)
             packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
         else:
             tile_k, packed_merge = min(top_k, n_bank), False
         kernel = (
-            "int8_tile_topk" if self.quantize_int8
+            ("int8_super_tile_topk" if spt > 1 else "int8_tile_topk")
+            if self.quantize_int8
+            else "float_packed_super_tile_topk" if spt > 1
             else "float_packed_tile_topk" if packed
             else "float_tile_topk"
         )
@@ -389,10 +453,10 @@ class QueryEngine:
             "merge": "packed_candidate_merge" + plain if packed_merge else "stable_sort",
             "packed_select": packed,
             "two_level": False,
-            "tile_n": TILE_N,
+            "tile_n": tile,
             "tile_k": tile_k,
             "sub_batch": batch,
-            "super_tiles": 1,
+            "super_tiles": spt,
             "lane_t": 0,
             "select_bank": (
                 "int8" if self.quantize_int8
@@ -486,7 +550,8 @@ class QueryEngine:
             # --- expansion -----------------------------------------------
             seeds = torch.where(top_v >= -1.0, bank["graph_ids"][gi], -1)
             expanded, exp_count = expand_batch_early_exit(
-                bank["neighbors"], seeds, depth=depth, max_nodes=max_expanded
+                bank["neighbors"], seeds, depth=depth, max_nodes=max_expanded,
+                hop2_neighbors=bank["neighbors_hop2"],
             )
 
             # --- expanded-node scoring -----------------------------------

@@ -8,10 +8,12 @@ that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
   * B4 (`check_exact_topk`): values within `atol`; an index may differ only
     where the two rows' scores (recomputed in float64) lie within `atol` of
     each other, a near-tie that rounding can order either way.
-  * B5 (`check_packed_topk`): keys equal, except in a tile where a row that
-    either side selected has its shifted score within 1e-6 of a multiple of
-    the key quantum (2^-11 above 2, 2^-12 below), where rounding can move
-    the row's key by one quantum.
+  * B5 and B7f (`check_packed_topk`): keys equal, except in a tile where a
+    row that either side selected has its shifted score within 1e-6 of a
+    multiple of the key quantum (B5: 2^-11 above 2, 2^-12 below; B7f over
+    lbits-row supertiles: lbits times 2^-22 above 2, 2^-23 below), where
+    rounding can move the row's key by one quantum.  On inputs whose dots
+    are exact in any order (multiples of 1/64, say) the two are bit-equal.
 """
 
 from __future__ import annotations
@@ -47,12 +49,14 @@ def check_exact_topk(kv, ki, pv, pi, q, e, mask, atol: float = 1e-5) -> Tuple[fl
     return err, len(bad)
 
 
-def check_packed_topk(kv, ki, pv, pi, q, e, max_share: float = 0.02) -> Tuple[float, int]:
-    """B5's kernel output (kv, ki) against its plain version's (pv, pi), all
-    [B, tiles, k], for operands q [B, D], e [N, D].  Returns (max abs value
-    difference over the slots that agree on their row, number of tiles that
-    differ next to a key-quantum boundary); raises if such tiles exceed
-    `max_share` of all."""
+def check_packed_topk(kv, ki, pv, pi, q, e, max_share: float = 0.02,
+                      lane_bits: int = 2048) -> Tuple[float, int]:
+    """B5's (or, with `lane_bits` = lbits, B7f's) kernel output (kv, ki)
+    against its plain version's (pv, pi), all [B, tiles, k], for operands
+    q [B, D], e [N, D].  Returns (max abs value difference over the slots
+    that agree on their row, number of tiles that differ next to a
+    key-quantum boundary); raises if such tiles exceed `max_share` of
+    all."""
     same_i = ki == pi
     same = same_i & (kv.view(torch.int32) == pv.view(torch.int32))
     bad = (~same).any(dim=2).nonzero()
@@ -60,7 +64,7 @@ def check_packed_topk(kv, ki, pv, pi, q, e, max_share: float = 0.02) -> Tuple[fl
         b_idx, t_idx = bad[:, 0], bad[:, 1]
         rows = torch.cat([ki[b_idx, t_idx], pi[b_idx, t_idx]], dim=1)
         x = _dots(q, e, b_idx[:, None].expand_as(rows), rows.clamp(min=0)) + 2.0
-        quantum = torch.where(x >= 2.0, 2.0**-11, 2.0**-12)
+        quantum = torch.where(x >= 2.0, lane_bits * 2.0**-22, lane_bits * 2.0**-23)
         near = ((x - torch.round(x / quantum) * quantum).abs() < NEAR_BOUNDARY)
         excused = (near & (rows >= 0)).any(dim=1)
         if not bool(excused.all()):

@@ -93,6 +93,14 @@ def synthetic_setup(
     """Synthetic index plus a random graph over the same ids, with edges of
     the two whitelisted expansion types."""
     index = synthetic_dense_index(n_rows, dim, seed=0)
+    index.graph_ids = np.arange(n_rows, dtype=np.int32)
+    return index, synthetic_graph(n_rows, graph_degree)
+
+
+def synthetic_graph(n_rows: int, graph_degree: int = 4) -> CsrGraph:
+    """`synthetic_setup`'s graph alone: `graph_degree` random edges out of
+    each of `n_rows` Product nodes, DESCRIBED_BY or ANNOTATION at random,
+    symmetrized; node i is row i."""
     rng = np.random.default_rng(3)
     src = np.repeat(np.arange(n_rows), graph_degree)
     dst = rng.integers(0, n_rows, size=n_rows * graph_degree)
@@ -100,7 +108,7 @@ def synthetic_setup(
         [edge_type_id("DESCRIBED_BY"), edge_type_id("ANNOTATION")],
         size=n_rows * graph_degree,
     )
-    graph = CsrGraph.from_edges(
+    return CsrGraph.from_edges(
         n_rows,
         src,
         dst,
@@ -110,5 +118,3 @@ def synthetic_setup(
         node_texts=[f"n{i}" for i in range(n_rows)],
         node_to_row=np.arange(n_rows, dtype=np.int32),
     )
-    index.graph_ids = np.arange(n_rows, dtype=np.int32)
-    return index, graph

@@ -143,6 +143,108 @@ def test_float_tile_topk_ties_and_fills_exact(cuda, dtype):
                        .expand(8, 3, 9).to(torch.int32))
 
 
+def _dyadic_inputs(b, n, d, seed, dev, dtype, mask_frac=0.1):
+    """Float operands that are multiples of 1/64 (|x| <= 6/64): every dot is
+    exact in f32 in any summation order, so B7f and its plain version see
+    the same keys."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-6, 7, (b, d)) / 64).to(dev, dtype)
+    e = torch.from_numpy(rng.integers(-6, 7, (n, d)) / 64).to(dev, dtype)
+    return q, e, torch.from_numpy(rng.random(n) >= mask_frac).to(dev)
+
+
+# (b, n, d, k_sub, lbits): three supertiles with a ragged last one; 8192-row
+# supertiles at k_sub 128 and ragged queries; one ragged supertile.
+SUPER_CASES = [(70, 9000, 384, 16, 2048), (64, 20_000, 128, 16, 4096),
+               (130, 20_000, 384, 128, 8192), (5, 3000, 128, 32, 8192)]
+
+
+@pytest.mark.parametrize("b,n,d,k,lbits", SUPER_CASES)
+def test_int8_super_tile_topk_equals_plain(cuda, b, n, d, k, lbits):
+    args = _b1_inputs(b, n, d, seed=b + k + 2, dev=cuda)
+    kv, ki = topk_cuda.int8_super_tile_topk(*args, k, lbits)
+    pv, pi = topk_cuda.int8_super_tile_topk_plain(*args, k, lbits)
+    torch.cuda.synchronize()
+    assert kv.shape == (b, -(-n // lbits), k)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k,lbits", SUPER_CASES)
+def test_float_packed_super_tile_topk_equals_plain(cuda, b, n, d, k, lbits, dtype):
+    """Bit for bit on exact dots; on normal inputs by `check_packed_topk`'s
+    rule for an lbits-wide lane field."""
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    q, e, mask = _dyadic_inputs(b, n, d, b + k, cuda, dtype)
+    kv, ki = topk_cuda.float_packed_super_tile_topk(q, e, mask, k, lbits)
+    pv, pi = topk_cuda.float_packed_super_tile_topk_plain(q, e, mask, k, lbits)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    q, e, mask = _float_inputs(b, n, d, b + k, cuda, dtype)
+    kv, ki = topk_cuda.float_packed_super_tile_topk(q, e, mask, k, lbits)
+    pv, pi = topk_cuda.float_packed_super_tile_topk_plain(q, e, mask, k, lbits)
+    torch.cuda.synchronize()
+    check_packed_topk(kv, ki, pv, pi, q, e, lane_bits=lbits)
+
+
+SUPER_MODES = {
+    "exact_rescore": (dict(exact_rescore=32, pallas_super=8), "float_packed_super_tile_topk"),
+    "int8_f32_rescore": (dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True,
+                              pallas_super=4), "int8_super_tile_topk"),
+    "int8_bf16_rescore": (dict(quantize_int8=True, int8_rescore=32, pallas_super=4),
+                          "int8_super_tile_topk"),
+    "int8_residual": (dict(quantize_int8=True, int8_residual=True, int8_rescore=32,
+                           pallas_super=4), "int8_super_tile_topk"),
+}
+
+
+@pytest.mark.parametrize("mode", list(SUPER_MODES))
+def test_super_engine_on_card_equals_engine_on_cpu(cuda, mode):
+    """Each rescored mode with supertiles launches its B7 kernel once (and
+    neither B1 nor B5) and equals the CPU engine."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    opts, kernel = SUPER_MODES[mode]
+    index, graph = synthetic_setup(20_000, 384, graph_degree=4)
+    q = np.random.default_rng(5).standard_normal((64, 384)).astype(np.float32)
+    names = (kernel, "int8_tile_topk", "float_packed_tile_topk")
+    before = [getattr(topk_cuda, name).launches for name in names]
+    rg = QueryEngine(index, graph, device=cuda, ell_max_degree=8, **opts).query_batch(
+        q, top_k=10)
+    after = [getattr(topk_cuda, name).launches for name in names]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0]
+    rc = QueryEngine(index, graph, device="cpu", ell_max_degree=8, **opts).query_batch(
+        q, top_k=10)
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_deep_expansion_on_card_equals_cpu(cuda, depth):
+    """top_k=10 seeds and max_expanded=100: the second (and third) hop runs
+    over the ANNOTATION table on the card as on the CPU."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(20_000, 384, graph_degree=8)
+    opts = dict(ell_max_degree=8, exact_rescore=32)
+    q = np.random.default_rng(depth).standard_normal((64, 384)).astype(np.float32)
+    kw = dict(top_k=10, expansion_depth=depth, max_expanded=100)
+    rg = QueryEngine(index, graph, device=cuda, **opts).query_batch(q, **kw)
+    rc = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, **kw)
+    assert (rc.expanded_counts > 80).all()
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f))
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), atol=1e-5, rtol=0)
+
+
 FIELDS = ("top_scores", "top_indices", "relevance", "combined",
           "expanded_nodes", "expanded_counts", "expanded_relevance")
 

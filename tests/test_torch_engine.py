@@ -103,26 +103,6 @@ def test_resolved_kernel_config(engines):
     assert c["merge_k"] == 32 and c["tile_n"] == 2048 and c["lane_t"] == 0
 
 
-@pytest.mark.parametrize(
-    "opts",
-    [
-        dict(exact_rescore=32, pallas_super=4),
-        dict(quantize_int8=True, int8_residual=True, int8_rescore=32,
-             pallas_super=4),
-        dict(quantize_int8=True, int8_rescore=32, pallas_super=4),
-        dict(quantize_int8=True, int8_rescore=32, int8_f32_rescore=True,
-             pallas_super=4),
-    ],
-)
-def test_other_modes_raise(opts):
-    """Supertile selection (kernel B7) is not ported: every rescored mode
-    that would take it raises.  The int8-only, int8-residual and bf16
-    rescore modes themselves run (tests/test_torch_int8_modes.py)."""
-    index, graph = synthetic_setup(256, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QueryEngine(index, graph, device="cpu", **opts)
-
-
 @pytest.mark.parametrize("lane_t", [2, 4])
 def test_select_lane_t_other_than_exact_raises(lane_t):
     """B1 selects every tile exactly: only lane depths 0 and 1 mean that."""

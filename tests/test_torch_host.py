@@ -113,17 +113,22 @@ def test_quantize_queries_bit_equal():
     assert _bytes_equal(np.asarray(js), ts.numpy())
 
 
-def test_bank_from_numpy_equals_port_bank(setups):
-    (jidx, jg), (tidx, tg) = setups
-    je = JaxEngine(jidx, jg, pallas_interpret=True, **MODE)
-    te = QueryEngine(tidx, tg, device="cpu", **MODE)
+@pytest.mark.parametrize("n,super_tiles,rows", [(N, 0, 4096), (10_000, 4, 16_384)])
+def test_bank_from_numpy_equals_port_bank(setups, n, super_tiles, rows):
+    """The same keys, the second-hop table included, and the same tensors.
+    Without supertiles the banks are padded to whole 2048-row tiles (10,000
+    rows would take 10,240); with them, to whole 8192-row supertiles."""
+    (jidx, jg), (tidx, tg) = (
+        setups if n == N else (_synthetic_setup(n, D), synthetic_setup(n, D))
+    )
+    je = JaxEngine(jidx, jg, pallas_interpret=True, pallas_super=super_tiles, **MODE)
+    te = QueryEngine(tidx, tg, device="cpu", pallas_super=super_tiles, **MODE)
     converted = bank_from_numpy(
         {k: np.asarray(v) for k, v in je._bank().items()}, device="cpu"
     )
     own = te._bank()
-    # The JAX bank's second-hop table serves depth >= 2, not ported yet.
-    assert set(converted) - set(own) == {"neighbors_hop2"}
-    assert set(own) <= set(converted)
+    assert set(converted) == set(own)
+    assert own["emb_int8"].shape[0] == rows
     for key in own:
         a, b = converted[key], own[key]
         assert a.dtype == b.dtype and a.shape == b.shape, key
@@ -159,14 +164,15 @@ def test_combine_metrics_dynamic_close():
 
 @pytest.mark.parametrize("c,num_nodes", [(80, 1000), (5000, 100)])
 def test_dedup_and_cap_equal(c, num_nodes):
-    """The port's pairwise dedup against both JAX lowerings: pairwise at
-    C=80 (depth 1's candidate count), sort-based at C=5000."""
+    """The port's dedup against both JAX lowerings: pairwise at C=80
+    (depth 1's candidate count), sort-based at C=5000 (the port's
+    lowerings give one result; which runs depends on B * C^2)."""
     rng = np.random.default_rng(c)
     cand = rng.integers(-1, num_nodes, size=(4, c)).astype(np.int32)
     out, cnt = jax.vmap(lambda x: jexpand.dedup_and_cap(x, num_nodes, 20))(
         jnp.asarray(cand)
     )
-    tout, tcnt = texpand.dedup_and_cap(torch.from_numpy(cand), 20)
+    tout, tcnt = texpand.dedup_and_cap(torch.from_numpy(cand), num_nodes, 20)
     np.testing.assert_array_equal(tout.numpy(), np.asarray(out))
     np.testing.assert_array_equal(tcnt.numpy(), np.asarray(cnt))
 
@@ -185,18 +191,10 @@ def test_expand_batch_early_exit_equal(setups, depth, max_nodes):
     )
     tout, tcnt = texpand.expand_batch_early_exit(
         torch.from_numpy(nb), torch.from_numpy(seeds), depth=depth,
-        max_nodes=max_nodes,
+        max_nodes=max_nodes, hop2_neighbors=torch.from_numpy(nb2),
     )
     np.testing.assert_array_equal(tout.numpy(), np.asarray(out))
     np.testing.assert_array_equal(tcnt.numpy(), np.asarray(cnt))
-
-
-def test_expand_beyond_one_hop_raises(setups):
-    (_, jg), _ = setups
-    nb = torch.from_numpy(jg.to_ell(EXPANSION_EDGE_TYPES, 8).neighbors)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texpand.expand_batch_early_exit(nb, torch.zeros((1, 2), dtype=torch.int32),
-                                        depth=2)
 
 
 def test_stable_top_k_ties_to_lowest_index():
