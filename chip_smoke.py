@@ -71,6 +71,18 @@ last line:
                k-pass packed branch, and B2; its gate queries' top-10 must
                equal the plain route's.
 
+Between the 1M-row paths and path R, path K runs the kernel sweep
+(`hcrag_tpu_torch.benchmarks.kernel_sweep`) over its own bank, the JAX
+sweep's data (1,001,472 x 384 bf16 rows, B=512): kernels B8a-c
+(`matmul_only_acc`, `matmul_only_wide`, `encode_level1`), B5 + B2, B4, B5
+alone and one cuBLAS bf16 product, each launch counted per timed row; it
+prints the sweep's JSON line and the attribution of B5's time to its
+stages, checks that B8a's time per dot is the same at 128- and 2048-row
+tiles (no dot dropped), and holds B8a-c against their plain versions at the
+sweep's shapes (B8a/B8b within 1e-5, B8c by `testing.check_level1`).  The
+kernel phase also holds B8a-c bit for bit on exact dots (d=384; tiles of
+2048, 1024 and 128 rows; b=512 and a ragged 200; negative keys in B8c).
+
 Every engine path prints: launch counts (set to 0 just before its
 `query_batch`; the supertile paths must not launch B1 or B5), recall@10
 against f32 brute force on 256 queries (TF32 off), a small card-vs-CPU
@@ -424,6 +436,75 @@ def phase_super_kernels(dev, err: dict) -> None:
     log("  supertile merge routing: pools of 320 and 80 take the stable sort, 1968 takes B2")
 
 
+def sweep_dyadic(b, n, seed, dev):
+    """Operands of kernels B8a-c whose dots are exact in any order: f32
+    queries and bf16 rows, multiples of 1/64 up to 12/64.  Query 0 is all
+    12/64 and column 5 of every 128-column group holds its negation (a dot
+    of -13.5, so B8c's keys there are negative)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-12, 13, (b, DIM)) / 64).float()
+    e = torch.from_numpy(rng.integers(-12, 13, (n, DIM)) / 64).float()
+    q[0] = 12 / 64
+    e[5::128] = -q[0]
+    return q.to(dev), e.to(dev, torch.bfloat16)
+
+
+def level1_err(got, want) -> float:
+    """Max abs difference of B8c's keys decoded to their shifted scores."""
+    def score(k):
+        return (k & ~2047).view(torch.float32).double()
+    return float((score(got) - score(want)).abs().max())
+
+
+def check_sweep_kernel(name, q, e, tile_n, exact: bool) -> float:
+    """B8a, B8b or B8c against its plain version: bit for bit (`exact`), or
+    within 1e-5 (B8a, B8b) / by `testing.check_level1` (B8c).  Returns the
+    max abs error (B8c: of the decoded scores)."""
+    from hcrag_tpu_torch.ops import sweep_cuda as sw
+    from hcrag_tpu_torch.testing import check_level1
+
+    got = getattr(sw, name)(q, e, tile_n)
+    want = getattr(sw, name + "_plain")(q, e, tile_n)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if exact:
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name} tile_n={tile_n}: kernel and plain version differ")
+        return 0.0
+    if name == "encode_level1":
+        check_level1(got, want, q.to(torch.bfloat16), e, tile_n)
+        return level1_err(got, want)
+    err = float((got - want).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{name} tile_n={tile_n}: max |err| {err} > 1e-5")
+    return err
+
+
+def phase_sweep_kernels(dev, err: dict) -> None:
+    """B8a-c against their plain versions: bit for bit on exact dots at
+    tiles of 2048, 1024 and 128 rows, b=512 and a ragged 200; on normal
+    inputs by their tolerances.  Updates the max abs errors in `err`."""
+    err.update({name: 0.0 for name in SWEEP_KERNELS})
+    for b, tile_n, tiles in ((512, 2048, 4), (200, 2048, 3), (512, 1024, 6), (200, 1024, 5),
+                             (512, 128, 40), (200, 128, 17)):
+        q, e = sweep_dyadic(b, tile_n * tiles, b + tile_n, dev)
+        for name in SWEEP_KERNELS:
+            check_sweep_kernel(name, q, e, tile_n, exact=True)
+        log(f"  B8a-c exact_dots: b={b} n={tile_n * tiles} d={DIM} bf16 tile={tile_n}: "
+            f"bit-equal")
+    for tile_n in (2048, 128):
+        q, e, _ = float_inputs(512, 8 * 2048, DIM, 40 + tile_n, dev, torch.float32)
+        e = e.to(torch.bfloat16)
+        errs = {name: check_sweep_kernel(name, q, e, tile_n, exact=False)
+                for name in SWEEP_KERNELS}
+        for name, x in errs.items():
+            err[name] = max(err[name], x)
+        log(f"  B8a-c normal: b=512 n={8 * 2048} d={DIM} bf16 tile={tile_n}: max |err| "
+            + ", ".join(f"{name} {x:.3g}" for name, x in errs.items()))
+
+
 def b6_inputs(b, n, seed, dev, w=8):
     """Operands of kernel B6: normalized f32 rows, random bit words (every
     other query and every 7th node without entities), intents, types, the
@@ -610,9 +691,11 @@ def check_result(res, batch: int, n_rows: int, top_k: int = TOP_K) -> None:
 def _wrappers() -> dict:
     """Every kernel's wrapper, whose `.launches` counts its launches."""
     from hcrag_tpu_torch.ops import scoring_cuda as sc
+    from hcrag_tpu_torch.ops import sweep_cuda as sw
     from hcrag_tpu_torch.ops import topk_cuda as tc
 
-    return {name: getattr(sc if name == "batch_relevance" else tc, name) for name in KERNELS}
+    modules = {"batch_relevance": sc, **{name: sw for name in SWEEP_KERNELS}}
+    return {name: getattr(modules.get(name, tc), name) for name in KERNELS}
 
 
 def zero_counts() -> None:
@@ -691,9 +774,10 @@ def path_mask(n_bank: int, n_rows: int, dev) -> torch.Tensor:
     return mask
 
 
+SWEEP_KERNELS = ("matmul_only_acc", "matmul_only_wide", "encode_level1")  # B8a-c
 KERNELS = ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk",
            "float_packed_tile_topk", "int8_exact_tile_topk", "batch_relevance",
-           "float_packed_super_tile_topk", "int8_super_tile_topk")
+           "float_packed_super_tile_topk", "int8_super_tile_topk", *SWEEP_KERNELS)
 SOURCES = {
     "int8_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
                        "hcrag_tpu/ops/topk_pallas.py:535"),
@@ -711,6 +795,12 @@ SOURCES = {
                                      "hcrag_tpu/ops/topk_pallas.py:319"),
     "int8_super_tile_topk": ("hcrag_tpu_torch/csrc/int8_tile_topk.cu",
                              "hcrag_tpu/ops/topk_pallas.py:345"),
+    "matmul_only_acc": ("hcrag_tpu_torch/csrc/kernel_sweep.cu",
+                        "benchmarks/kernel_sweep.py:65"),
+    "matmul_only_wide": ("hcrag_tpu_torch/csrc/kernel_sweep.cu",
+                         "benchmarks/kernel_sweep.py:101"),
+    "encode_level1": ("hcrag_tpu_torch/csrc/kernel_sweep.cu",
+                      "benchmarks/kernel_sweep.py:129"),
 }
 
 
@@ -1319,6 +1409,64 @@ def path_d2(index, graph, queries, ref, dev, card, rec) -> None:
     int8_kernels_at_path(engine, dq, "D2", card, rec, 0, b1_reps=2)
 
 
+def path_k(dev, card, rec) -> None:
+    """The kernel sweep at the JAX sweep's shapes over its own bank: each
+    row's launches, the JSON line, the attribution of B5's time, B8a's time
+    per dot at 128- against 2048-row tiles; then B8a-c against their plain
+    versions at these shapes, with their plain times and bounds."""
+    from hcrag_tpu_torch.benchmarks import kernel_sweep as ks
+    from hcrag_tpu_torch.ops import sweep_cuda as sw
+
+    t0 = time.time()
+    q, e = ks.sweep_data(dev)
+    torch.cuda.synchronize()
+    b, n = q.shape[0], e.shape[0]
+    log(f"[K] sweep data: {n} x {DIM} bf16 rows, B={b} built in {time.time() - t0:.1f} s "
+        f"(host draws, copied to the card)")
+    zero_counts()
+    t0 = time.time()
+    res = ks.sweep(dev, data=(q, e))
+    rec.launches["K"] = read_counts()
+    log(f"[K] sweep in {time.time() - t0:.1f} s; launches {rec.launches['K']}")
+    calls = res["shapes"]["steps"] + res["shapes"]["warmup"]
+    want = {name: {name: calls} for name in SWEEP_KERNELS}
+    want.update(matmul_only_acc_tile128={"matmul_only_acc": calls},
+                b5_alone={"float_packed_tile_topk": calls})
+    for row, counts in want.items():
+        if res["launches"][row] != counts:
+            raise AssertionError(f"K: row {row} launched {res['launches'][row]}, want {counts}")
+    log(json.dumps(res))
+    a = res["attribution"]
+    b5 = res["b5_alone"]
+    log(f"[K] attribution of B5 alone ({b5:.3f} ms, B={b}, N={n}; {card}): dots "
+        f"{a['dots_ms']:.3f} ms ({100 * a['dots_share_of_b5']:.1f}%), wide writes "
+        f"{a['writes_ms']:.3f} ms, encode + level-1 {a['encode_level1_ms']:.3f} ms, level-2 "
+        f"selection {a['level2_ms']:.3f} ms; B5 + B2 {res['full_two_level']:.3f} ms; cuBLAS "
+        f"bf16 product of the same dots {res['library_matmul']:.3f} ms "
+        f"({a['library_speedup_over_dots']:.1f}x the dot loop's rate); B8a per dot at "
+        f"2048- / 128-row tiles {a['acc_2048_over_128']:.3f}")
+    if not 1 / 1.2 <= a["acc_2048_over_128"] <= 1.2:
+        raise AssertionError("K: B8a's time per dot at 2048-row tiles is not within 20% of "
+                             "its time at 128-row tiles: dots were dropped")
+
+    qb = q.to(torch.bfloat16)
+    tiles = n // 2048
+    out_bytes = {"matmul_only_acc": 4 * b * 128, "matmul_only_wide": 4 * b * tiles * 128,
+                 "encode_level1": 4 * b * 256}
+    for name in SWEEP_KERNELS:
+        err = check_sweep_kernel(name, qb, e, 2048, exact=False)
+        rec.err(name, err)
+        plain = getattr(sw, name + "_plain")
+        plain_ms = cuda_ms(lambda: plain(qb, e), reps=1)
+        bound = bound_ms(2.0 * b * n * DIM, "bf16",
+                         2 * qb.numel() + 2 * e.numel() + out_bytes[name])
+        log(f"[K] B8 {name} B={b} N={n} tiles={tiles}: agrees with its plain version "
+            f"(max |err| {err:.3g}); {res[name]:.3f} ms (plain {plain_ms:.3f} ms, "
+            f"torch.matmul of the same dots without the fold {res['library_matmul']:.3f} ms, "
+            f"bound {bound[0]:.3f} ms by {bound[1]}; {card})")
+        rec.kernel(name, "K", res[name], plain_ms, bound, res["library_matmul"])
+
+
 def free(label: str) -> None:
     import gc
 
@@ -1377,7 +1525,10 @@ def main() -> int:
         f"{time.time() - t0:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:  # the kernel and its template arguments
+                fn = line.split("'")[1]
+                log(f"[build] {name}: {fn[max(0, fn.find('_kernelI') - 20):][:64]}")
+            elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # 3. kernels against their plain versions -------------------------------
@@ -1387,6 +1538,7 @@ def main() -> int:
     phase_float_kernels(dev, max_err)
     phase_scoring_kernels(dev, max_err)
     phase_super_kernels(dev, max_err)
+    phase_sweep_kernels(dev, max_err)
     rec = Record(max_err)
 
     # 4-7. the paths over one 1M-row index --------------------------------------
@@ -1415,6 +1567,10 @@ def main() -> int:
     path_d3(index, graph, queries, ref, dev, card, rec)
     free("D3")
     del index, graph
+
+    # the kernel sweep over its own bank ------------------------------------
+    path_k(dev, card, rec)
+    free("K")
 
     # 8. relevance scoring --------------------------------------------------
     path_r(dev, card, rec)

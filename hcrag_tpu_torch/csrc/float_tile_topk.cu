@@ -63,26 +63,27 @@
 // Design (as B1's): one block takes QB = 64 queries and one tile.  The query
 // block stays in shared memory as f32; the tile streams through shared
 // memory in sub-tiles of RB = 64 rows and chunks of DC = 64 columns.  256
-// threads each compute a 4 x 4 block of dots with 16-byte shared loads,
-// write the keys to shared memory, and each warp merges the keys of its 8
-// queries into their sorted lists (tile_select.cuh).  Blocks are ordered
-// query block fastest, so all query blocks of one tile run together and read
-// the tile from L2.
+// threads each compute a 4 x 4 block of dots with 16-byte shared loads (the
+// dot loop of float_dot.cuh, which B8 shares), write the keys to shared
+// memory, and each warp merges the keys of its 8 queries into their sorted
+// lists (tile_select.cuh).  Blocks are ordered query block fastest, so all
+// query blocks of one tile run together and read the tile from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "float_dot.cuh"
 #include "tile_select.cuh"
 
 namespace {
 
-constexpr int QB = 64;          // queries per block
-constexpr int RB = 64;          // index rows per staged sub-tile
-constexpr int DC = 64;          // columns per staged chunk
-constexpr int E_STRIDE = DC + 4;
-constexpr int THREADS = 256;    // 16 x 16 threads, 4 x 4 dots each
+using float_dot::DC;
+using float_dot::E_STRIDE;
+using float_dot::QB;
+using float_dot::RB;
+using float_dot::THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int Q_PER_WARP = QB / WARPS;
 constexpr int KEY_STRIDE = 68;  // keys per query row of the key buffer
@@ -153,32 +154,8 @@ struct SuperKey {
   }
 };
 
-// Eight consecutive values of a row, widened to f32 (16-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
 size_t smem_bytes(int d, int k, size_t key_bytes) {
-  return sizeof(float) * ((size_t)QB * (d + 4) + (size_t)RB * E_STRIDE) +
+  return sizeof(float) * float_dot::smem_floats(d) +
          key_bytes * (size_t)QB * (KEY_STRIDE + k) + sizeof(int) * RB;
 }
 
@@ -193,7 +170,7 @@ float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
   extern __shared__ __align__(16) unsigned char smem[];
   const int q_stride = d + 4;  // padded rows spread the shared banks
   float* q_rows = reinterpret_cast<float*>(smem);
-  float* e_rows = q_rows + QB * q_stride;
+  float* e_rows = q_rows + QB * q_stride;  // float_dot's layout
   Key* keys = reinterpret_cast<Key*>(e_rows + RB * E_STRIDE);
   Key* lists = keys + QB * KEY_STRIDE;
   int* valid_s = reinterpret_cast<int*>(lists + QB * k);
@@ -207,62 +184,19 @@ float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
   const int tile = blockIdx.y;
   const int tile_base = tile * tile_n;
   const int rows_here = min(tile_n, n - tile_base);
-  const int q_chunks = d / 8;
 
-  for (int x = tid; x < QB * q_chunks; x += THREADS) {
-    const int r = x / q_chunks, c = x - r * q_chunks;
-    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < b) load8(q + (size_t)(q0 + r) * d + c * 8, v);
-    store8(q_rows + r * q_stride + c * 8, v);
-  }
+  float_dot::stage_queries(q, q_rows, q0, b, d);
   for (int x = tid; x < QB * k; x += THREADS) lists[x] = K::filler();
 
   for (int sub = 0; sub < rows_here; sub += RB) {
     float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-    for (int dc = 0; dc < d; dc += DC) {
-      __syncthreads();  // the staged chunk (and the last keys) are consumed
-      for (int x = tid; x < RB * (DC / 8); x += THREADS) {
-        const int r = x / (DC / 8), c = x - r * (DC / 8);
-        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (sub + r < rows_here)
-          load8(e + (size_t)(tile_base + sub + r) * d + dc + c * 8, v);
-        store8(e_rows + r * E_STRIDE + c * 8, v);
-      }
-      if (dc == 0 && tid < RB) {
-        const bool in = sub + tid < rows_here;
-        valid_s[tid] = in ? (mask[tile_base + sub + tid] != 0) : -1;
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int c = 0; c < DC; c += 4) {
-        float4 qv[4], ev[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(
-              q_rows + (tq * 4 + i) * q_stride + dc + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          ev[j] = *reinterpret_cast<const float4*>(
-              e_rows + (tr + 16 * j) * E_STRIDE + c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float a = acc[i][j];
-            a = __fmaf_rn(qv[i].x, ev[j].x, a);
-            a = __fmaf_rn(qv[i].y, ev[j].y, a);
-            a = __fmaf_rn(qv[i].z, ev[j].z, a);
-            a = __fmaf_rn(qv[i].w, ev[j].w, a);
-            acc[i][j] = a;
-          }
-      }
-    }
+    float_dot::sub_tile_dots(e, q_rows, e_rows, d, tile_base, sub, rows_here, acc,
+                             [&](int dc) {
+                               if (dc == 0 && tid < RB) {
+                                 const bool in = sub + tid < rows_here;
+                                 valid_s[tid] = in ? (mask[tile_base + sub + tid] != 0) : -1;
+                               }
+                             });
 
 #pragma unroll
     for (int i = 0; i < 4; ++i)

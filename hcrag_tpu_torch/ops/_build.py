@@ -30,10 +30,11 @@ NVCC_FLAGS = (
     "--fmad=false",  # an FMA would change the packed key bits
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
-#: Every source under csrc/: B1 and B3 (int8_tile_topk), B2, B4 and B5
-#: (float_tile_topk), B6 (batch_relevance).
+#: Every source under csrc/: B1, B3 and B7i (int8_tile_topk), B2, B4, B5 and
+#: B7f (float_tile_topk), B6 (batch_relevance), B8 (kernel_sweep).
 KERNEL_SOURCES = (
     "int8_tile_topk", "packed_candidate_merge", "float_tile_topk", "batch_relevance",
+    "kernel_sweep",
 )
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 """Comparisons of the float selection kernels with their plain versions.
 
-Kernels B4 and B5 take their f32 dot sums in another order than the plain
-versions' matrix products, so the two agree to rounding, not to the bit.
+Kernels B4, B5, B7f and B8 take their f32 dot sums in another order than the
+plain versions' matrix products, so the two agree to rounding, not to the
+bit.
 These checks state how far they may differ and raise AssertionError past
 that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
 
@@ -14,6 +15,11 @@ that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
     lbits-row supertiles: lbits times 2^-22 above 2, 2^-23 below), where
     rounding can move the row's key by one quantum.  On inputs whose dots
     are exact in any order (multiples of 1/64, say) the two are bit-equal.
+  * B8c (`check_level1`): the [m1 | m2] keys equal, except where the row a
+    differing key may come from (its column, in any tile) has its shifted
+    score within 1e-6 of a multiple of the key quantum (2^-11 above 2,
+    2^-12 below) and within a quantum of that key's score.  Bit-equal on
+    exact dots.
 """
 
 from __future__ import annotations
@@ -75,3 +81,38 @@ def check_packed_topk(kv, ki, pv, pi, q, e, max_share: float = 0.02,
     diff = (kv.double() - pv.double()).abs()
     err = float(torch.where(same_i, diff, 0.0).max())
     return err, len(bad)
+
+
+def check_level1(kernel_out, plain_out, q, e, tile_n: int, max_share: float = 0.02,
+                 chunk: int = 64) -> int:
+    """B8c's kernel output against its plain version's, both [B, 256] int32
+    ([m1 | m2] keys), for operands q [B, D] and e [N, D] of whole `tile_n`-row
+    tiles.  A key names its column in the tile, not the tile, so the rows
+    it may come from are that column's rows in every tile; a differing
+    entry is excused when, for one of the two keys, such a row lies next to
+    a key-quantum boundary and within a quantum of the key's score.
+    Returns the number of differing entries; raises past `max_share` of
+    all, or at one that is not excused."""
+    bad = (kernel_out != plain_out).nonzero()
+    if not len(bad):
+        return 0
+    if len(bad) > max_share * kernel_out.numel():
+        raise AssertionError(f"{len(bad)} keys differ: more than {max_share:.0%}")
+    n = e.shape[0]
+    tile_base = torch.arange(0, n, tile_n, device=e.device)
+    for lo in range(0, len(bad), chunk):
+        b_idx, slot = bad[lo:lo + chunk, 0], bad[lo:lo + chunk, 1]
+        keys = torch.stack([kernel_out[b_idx, slot], plain_out[b_idx, slot]], dim=1)
+        col = 2047 - (keys & 2047)
+        score = (keys & ~2047).view(torch.float32).double()  # the key's s + 2
+        rows = col[:, :, None] + tile_base  # [m, 2, tiles]
+        real = ((keys > 0) & (col < tile_n))[:, :, None]
+        x = _dots(q, e, b_idx[:, None, None].expand_as(rows), rows.clamp(max=n - 1)) + 2.0
+        quantum = torch.where(x >= 2.0, 2.0**-11, 2.0**-12)
+        near = (x - torch.round(x / quantum) * quantum).abs() < NEAR_BOUNDARY
+        close = (x - score[:, :, None]).abs() <= quantum + NEAR_BOUNDARY
+        excused = (near & close & real).flatten(1).any(dim=1)
+        if not bool(excused.all()):
+            first = bad[lo:lo + chunk][~excused][0].tolist()
+            raise AssertionError(f"keys differ at (query, slot) {first} away from a boundary")
+    return len(bad)

@@ -1,15 +1,24 @@
-"""Named wall-clock spans for the host stages of a query.
+"""Named wall-clock spans, device timing and profiler traces.
 
-Counterpart of `StageTimer` and `GLOBAL_TIMER` in `hcrag_tpu/utils/timing.py`
-(host-only: device time is measured with CUDA events or torch.profiler).
+Counterpart of `hcrag_tpu/utils/timing.py`:
+
+  * `StageTimer`, `GLOBAL_TIMER` — named wall-clock spans for the host
+    stages of a query;
+  * `device_time` — mean seconds per call of a function on a named device:
+    CUDA events for a CUDA device, the host clock for the CPU;
+  * `trace_to` — a torch.profiler trace of a block of code, exported as a
+    Chrome trace (chrome://tracing, Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Union
+
+import torch
 
 
 class StageTimer:
@@ -52,3 +61,50 @@ class StageTimer:
 
 #: Process-wide default timer (opt-in use).
 GLOBAL_TIMER = StageTimer()
+
+
+def device_time(fn, *args, iters: int = 10, warmup: int = 2,
+                device: Union[str, torch.device]) -> float:
+    """Mean seconds per call of fn(*args) over `iters` back-to-back calls,
+    after `warmup` calls.  On a CUDA `device`, CUDA events on its current
+    stream around the calls, then a synchronize: the device's time, not the
+    enqueue's.  On the CPU, the host clock.  The caller names the device the
+    work runs on; any other device type raises."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device_time times CUDA or CPU work, got {dev}")
+    if iters < 1:
+        raise ValueError(f"iters must be at least 1, got {iters}")
+    for _ in range(warmup):
+        fn(*args)
+    if dev.type == "cpu":
+        start = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        return (time.perf_counter() - start) / iters
+    with torch.cuda.device(dev):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return begin.elapsed_time(end) / 1e3 / iters
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """Profile the block with torch.profiler (host activity, and the card's
+    kernels and copies when CUDA is available) and export it to
+    `logdir`/trace.json as a Chrome trace.  Yields the profiler, whose
+    `key_averages()` sums the time by operation and kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

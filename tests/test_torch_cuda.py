@@ -436,3 +436,61 @@ def test_batch_isrelevant_fused_on_card(cuda):
         assert scoring_cuda.batch_relevance.launches == before + 1, st
         want = batch_isRelevant(query, nodes, st, device="cpu")
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=str(st))
+
+
+def _sweep_dyadic(b, n, d, seed, dev):
+    """Multiples of 1/64 up to 12/64 (every dot exact in f32); query 0 is
+    all 12/64 and column 5 of every 128-column group holds its negation, so
+    its keys in B8c are negative."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(-12, 13, (b, d)) / 64).float()
+    e = torch.from_numpy(rng.integers(-12, 13, (n, d)) / 64).float()
+    q[0] = 12 / 64
+    e[5::128] = -q[0]
+    return q.to(dev), e.to(dev, torch.bfloat16)
+
+
+SWEEP_KERNELS = ("matmul_only_acc", "matmul_only_wide", "encode_level1")
+
+
+@pytest.mark.parametrize("b,tile_n,tiles", [(512, 2048, 3), (200, 1024, 5), (200, 128, 40)])
+@pytest.mark.parametrize("name", SWEEP_KERNELS)
+def test_sweep_kernels_equal_plain_on_exact_dots(cuda, name, b, tile_n, tiles):
+    from hcrag_tpu_torch.ops import sweep_cuda
+
+    q, e = _sweep_dyadic(b, tile_n * tiles, 384, b + tile_n, cuda)
+    got = getattr(sweep_cuda, name)(q, e, tile_n)
+    want = getattr(sweep_cuda, name + "_plain")(q, e, tile_n)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("tile_n", [2048, 128])
+@pytest.mark.parametrize("name", SWEEP_KERNELS)
+def test_sweep_kernels_agree_with_plain_on_normal_inputs(cuda, name, tile_n):
+    from hcrag_tpu_torch.ops import sweep_cuda
+    from hcrag_tpu_torch.testing import check_level1
+
+    q, e, _ = _float_inputs(300, 4 * 2048, 384, tile_n, cuda, torch.float32)
+    e = e.to(torch.bfloat16)
+    got = getattr(sweep_cuda, name)(q, e, tile_n)
+    want = getattr(sweep_cuda, name + "_plain")(q, e, tile_n)
+    torch.cuda.synchronize()
+    if name == "encode_level1":
+        check_level1(got, want, q.to(torch.bfloat16), e, tile_n)
+    else:
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_sweep_acc_keeps_every_dot(cuda):
+    """B8a over the same bank at tile_n 2048 (128 of every 2048 columns reach
+    the output) and 128 (all of them): the same dots, so within 20% in time;
+    a kernel that dropped the dead columns' dots would be ~16x faster."""
+    from hcrag_tpu_torch.ops import sweep_cuda
+    from hcrag_tpu_torch.utils.timing import device_time
+
+    q, e = _sweep_dyadic(512, 64 * 2048, 384, 3, cuda)
+    t = {tile: device_time(sweep_cuda.matmul_only_acc, q, e, tile, iters=5, device=cuda)
+         for tile in (2048, 128)}
+    assert 1 / 1.2 <= t[2048] / t[128] <= 1.2, t

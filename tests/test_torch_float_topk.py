@@ -239,6 +239,7 @@ def test_bounds_cover_every_tpu_kernel():
     by_id = {kid: r for (kid, _), r in rows.items()}
     for kid, ms, by in (("B1", 3.184, "operations"), ("B2", 0.0510, "bytes"),
                         ("B3", 7.948, "operations"),
-                        ("B4", 11.755, "operations"), ("B5", 6.371, "operations")):
+                        ("B4", 11.755, "operations"), ("B5", 6.371, "operations"),
+                        ("B8", 0.398, "operations")):
         assert by_id[kid]["bound_ms"] == pytest.approx(ms, rel=1e-3), kid
         assert by_id[kid]["bound_by"] == by, kid
