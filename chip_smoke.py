@@ -12,22 +12,28 @@ last line:
   3. kernels — every kernel against its plain PyTorch version on the card:
                B1, B3e, B7i and B2 bit for bit (b=512 at D=384 over 20 tiles
                with a ragged last tile and masked rows, the 4890-candidate
-               pool, all-tied input, a small pool, pools past one block's
-               shared memory that B2 merges in chunks (10M rows at per-tile
-               k = 12, and k = 128), the per-tile pick-count raise, B3e
-               under filters that leave fewer than k rows in a
-               tile or fewer than top_k in the bank); B4 (f32 and bf16
-               banks) and B5 at the same shapes under the rules of
-               `hcrag_tpu_torch/testing.py`, and exactly on a zero query,
-               on one-hot queries under a filter that leaves fewer than k
-               rows in a tile, and in the pick-count raise case; B6 within
+               pool, all-tied input, a small pool, batches that put 8 and 2
+               queries in a block with a partial last block, pools past
+               one block's shared memory (10M rows at per-tile k = 12, and
+               k = 128), the per-tile pick-count raise, B3e under filters
+               that leave fewer than k rows in a tile or fewer than top_k
+               in the bank); B4 (f32 and bf16 banks) and B5 at the same
+               shapes under the rules of `hcrag_tpu_torch/testing.py`, and
+               exactly on a zero query, on one-hot queries under a filter
+               that leaves fewer than k rows in a tile, and in the
+               pick-count raise case; B5 on the tensor cores bit for bit on
+               exact dots at per-tile k 1, 10, 100 and 128, d 128 and 384,
+               and by `testing.py` on normal inputs at the same shapes; the
+               tensor-core loop's largest |dot - float64 dot| against
+               `testing.TC_DOT_ERROR`; B6 within
                1e-5 at B=256 x 8192 nodes (both reductions), one query x
                8192 nodes and a ragged 8191 nodes; B7i and B7f (f32 and
                bf16 banks; inputs whose dots are exact in any order) bit for
                bit at 2048-, 4096- and 8192-row supertiles with masked rows,
-               a ragged last supertile, ragged queries, k_sub 128 and the
-               small-pool pick raise, B7f on normal inputs by `testing.py`'s
-               rule, and the supertile merge's routing (B2 from 1024);
+               a ragged last supertile, ragged queries, k_sub 1, 10, 100 and
+               128 at d 128 and 384, and the small-pool pick raise, B7f on
+               normal inputs by `testing.py`'s rule, and the supertile
+               merge's routing (B2 from 1024);
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
@@ -50,6 +56,11 @@ last line:
                then its breakdown: retrieval only, `expand_batch` at depth 3
                over random seeds, the dedup alone at C = 58,400, each held
                against the CPU on a few rows;
+     paths L1, L2 — top_k = 256 (past the kernels' per-tile lists) through
+               the JAX engine's route off the TPU, B=64 over the same rows:
+               the default f32 engine and the int8 + f32 rescore engine;
+               no selection kernel may launch; recall@256 against f32 brute
+               force, the card against the CPU on 4 rows, the step's time;
   7. path D3 — the same rows rounded to bf16 (as `bench.py` hands the index
                in its BENCH_INT8_MODE="" mode), `quantize_int8=True,
                int8_rescore=32`: B1, B2, the rescore from bf16 rows, B=8192;
@@ -76,10 +87,11 @@ Between the 1M-row paths and path R, path K runs the kernel sweep
 sweep's data (1,001,472 x 384 bf16 rows, B=512): kernels B8a-c
 (`matmul_only_acc`, `matmul_only_wide`, `encode_level1`), B5 + B2, B4, B5
 alone and one cuBLAS bf16 product, each launch counted per timed row; it
-prints the sweep's JSON line and the attribution of B5's time to its
-stages, checks that B8a's time per dot is the same at 128- and 2048-row
-tiles (no dot dropped), and holds B8a-c against their plain versions at the
-sweep's shapes (B8a/B8b within 1e-5, B8c by `testing.check_level1`).  The
+prints the sweep's JSON line, the split of the CUDA-core dot loop (B8a-c)
+and B5 on the tensor cores beside the cuBLAS product, checks that B8a's
+time per dot is the same at 128- and 2048-row tiles (no dot dropped), and
+holds B8a-c against their plain versions at the sweep's shapes (B8a/B8b
+within 1e-5, B8c by `testing.check_level1`).  The
 kernel phase also holds B8a-c bit for bit on exact dots (d=384; tiles of
 2048, 1024 and 128 rows; b=512 and a ragged 200; negative keys in B8c).
 
@@ -88,7 +100,8 @@ Every engine path prints: launch counts (set to 0 just before its
 against f32 brute force on 256 queries (TF32 off), a small card-vs-CPU
 engine check, host set-up time, step time (CUDA events),
 a profile of the step, peak device memory, and its kernels at its shapes
-against their plain versions, with their bounds.  Each engine and index is
+against their plain versions, with their bounds; B2 also beside one
+`torch.topk` over the same pool.  Each engine and index is
 freed before the next.  The second-to-last line is a JSON object listing the
 kernels; the last is {"ok": true, "device": {...}}.  Exits non-zero without
 a result when CUDA is unavailable or the package is missing.
@@ -121,6 +134,8 @@ R_NODES = 8192
 R_ROUTE_NODES = (512, 2048, 8192, 32768)  # path R's route data
 SUPER_FLOAT, SUPER_INT8 = 8, 4  # pallas_super of path S1, of paths S2 and S3
 X_TOP_K, X_DEPTH, X_BATCH, X_DEGREE = 100, 3, 256, 8  # path X
+LARGE_K, LARGE_K_BATCH = 256, 64  # paths L1 and L2
+LARGE_K_MIN_RECALL_INT8 = 0.95
 
 
 def log(*a):
@@ -198,8 +213,9 @@ def phase_kernels(dev) -> dict:
         err["packed_candidate_merge"] = max(err["packed_candidate_merge"], e)
         b, tiles, k = v.shape
         ms = cuda_ms(lambda: tc.packed_candidate_merge(v, i, out_k), reps=5)
-        log(f"  B2 {name}: b={b} pool={tiles} x {k} ({tc.merge_chunks(tiles, k)[1]} "
-            f"chunk(s)) out_k={out_k}: bit-equal, {ms:.4f} ms")
+        wpq = tc.merge_warps(b)
+        log(f"  B2 {name}: b={b} pool={tiles} x {k} out_k={out_k} ({wpq} warp(s) a query, "
+            f"{8 // wpq} a block): bit-equal, {ms:.4f} ms")
 
     # The main path's width and tile: b=512 over 20 tiles of 2048, the last
     # ragged, a tenth of the rows masked.
@@ -218,17 +234,20 @@ def phase_kernels(dev) -> dict:
 
     # B2 reads B1's [b, tiles, k] output; the last twentieth of the tiles
     # hold only fillers.  10M rows at per-tile k = 12 (58,596 candidates)
-    # and k = 128 pass one block's shared memory: B2 selects in chunks.
+    # and k = 128 pass one block's shared memory, which the first version
+    # needed for its pool; B2 streams any pool from device memory.  Batches
+    # of 4229 and 2049 put 8 and 2 queries in a block with a partial last
+    # block, smaller ones one query over 8 warps.
     rng = np.random.default_rng(4)
     for name, b, tiles, k, out_k, ties in (
             ("bench", 512, 489, TOP_K, RESCORE, False),
             ("ties", 64, 489, TOP_K, RESCORE, True),
             ("small_pool", 64, 100, TOP_K, RESCORE, False),
-            ("10M_k12_two_chunks", 256, 4883, 12, RESCORE, False),
-            ("10M_k12_two_chunks_ties", 64, 4883, 12, RESCORE, True),
-            ("k128_many_chunks", 8, 20_000, 128, 128, True)):
-        if ("chunks" in name) != (tc.merge_chunks(tiles, k)[1] > 1):
-            raise AssertionError(f"{name}: not chunked as its name says")
+            ("8_queries_a_block_ragged", 4229, 489, TOP_K, RESCORE, True),
+            ("2_queries_a_block_ragged", 2049, 489, TOP_K, 100, False),
+            ("10M_k12", 256, 4883, 12, RESCORE, False),
+            ("10M_k12_ties", 64, 4883, 12, RESCORE, True),
+            ("k128", 8, 20_000, 128, 128, True)):
         v = (rng.standard_normal((b, tiles, k)) * 0.1).astype(np.float32)
         if ties:
             v = np.round(v * 8) / 8
@@ -359,6 +378,37 @@ def phase_float_kernels(dev, err: dict) -> None:
     b4("k128_ragged_queries", float_inputs(130, 4096, 128, 26, dev, torch.float32), 128)
     b5("k128_ragged_queries", float_inputs(130, 4096, 128, 27, dev, torch.bfloat16), 128)
 
+    # B5 over a bf16 bank runs on the tensor cores: bit for bit on exact
+    # dots at per-tile k 1, 10, 100 and 128, d 128 and 384, ragged tiles
+    # and query blocks, a tenth of the rows masked; by `testing.py`'s rule
+    # on normal inputs at the same shapes.
+    for k, d, b, n in ((1, DIM, 130, 9000), (TOP_K, 128, 70, 5000), (100, DIM, 200, 4500),
+                       (128, 128, 64, 4096), (100, DIM, 129, 5000)):
+        args = dyadic_inputs(b, n, d, 40 + k + d, dev, torch.bfloat16)
+        exact(f"B5 exact_dots k={k} d={d} b={b} n={n}", *run("float_packed_tile_topk", args,
+                                                            k, 2048))
+        b5(f"normal k={k} d={d}", float_inputs(b, n, d, 41 + k + d, dev, torch.bfloat16), k)
+
+    # How far the tensor-core loop's sums lie from the float64 dots
+    # (`testing.TC_DOT_ERROR` is the band the card tests hold it to).
+    from hcrag_tpu_torch.testing import TC_DOT_ERROR
+
+    q, e, _ = float_inputs(512, 65_536, DIM, 42, dev, torch.bfloat16)
+    dots = tc.bf16_tc_dots(q, e)
+    f32 = (q.float() @ e.float().T).double()
+    want = q.double() @ e.double().T
+    tc_err, f32_err = (float((x.double() - want).abs().max()) for x in (dots, f32))
+    log(f"  tensor-core dot loop (bf16_tc_dots) over 512 x 65,536 normalized rows, d={DIM}: "
+        f"max |dot - float64 dot| {tc_err:.3g} (an f32 matrix product: {f32_err:.3g}; "
+        f"band {TC_DOT_ERROR:g})")
+    if tc_err > TC_DOT_ERROR:
+        raise AssertionError(f"tensor-core dots {tc_err} off, past {TC_DOT_ERROR}")
+    del dots, f32, want
+    q, e, _ = dyadic_inputs(200, 5000, DIM, 43, dev, torch.bfloat16)
+    if not torch.equal(tc.bf16_tc_dots(q, e), (q.double() @ e.double().T).float()):
+        raise AssertionError("tensor-core dots are not exact on dyadic inputs")
+    log("  tensor-core dot loop on exact dots: equal to the float64 dots")
+
 
 def dyadic_inputs(b, n, d, seed, dev, dtype, mask_frac=0.1):
     """Float operands that are multiples of 1/64 (|x| <= 6/64): every dot is
@@ -415,6 +465,9 @@ def phase_super_kernels(dev, err: dict) -> None:
            dyadic_inputs(130, 20_000, DIM, 34, dev, dtype), 128, 8192)
         b7("float_packed_super_tile_topk", "exact_dots_pick_raise",
            dyadic_inputs(100, 5000, DIM, 35, dev, dtype), k_raised, 8192)
+        for k, d, lbits in ((1, 128, 4096), (100, DIM, 2048), (TOP_K, 128, 8192)):
+            b7("float_packed_super_tile_topk", f"exact_dots_k{k}_d{d}",
+               dyadic_inputs(130, 20_000, d, 38 + k, dev, dtype), k, lbits)
         b7("float_packed_super_tile_topk", "normal", float_inputs(512, 40_000, DIM, 36, dev,
                                                                   dtype), 16, 8192, exact=False)
 
@@ -749,7 +802,7 @@ def drive(engine, queries: np.ndarray, counted, label: str, ref: np.ndarray,
             raise AssertionError(f"path {label} launched {name}")
     check_result(res, len(queries), n_rows, top_k)
     r = recall(ref, res.top_indices)
-    log(f"[{label}] recall@{ref.shape[1]} vs f32 brute force ({GATE_QUERIES} queries): "
+    log(f"[{label}] recall@{ref.shape[1]} vs f32 brute force ({len(ref)} queries): "
         f"{r:.4f} (gate {min_recall})")
     if r < min_recall:
         raise AssertionError(f"{label}: recall {r} below {min_recall}")
@@ -816,11 +869,10 @@ def engine_ready(label: str, index, graph, dev, batch: int, top_k: int = TOP_K, 
     return engine
 
 
-def merge_at_path(vals, idxs, out_k, label, card, rec, library=False) -> None:
+def merge_at_path(vals, idxs, out_k, label, card, rec) -> None:
     """B2 over the path's candidate pool [b, tiles, k] against its plain
     version (bit for bit), then its time beside the plain version's, its
-    bound and, with `library`, one `torch.topk` over the flat pool (no tie
-    order)."""
+    bound and one `torch.topk` over the flat pool (no tie order)."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
 
     rec.err("packed_candidate_merge",
@@ -829,22 +881,18 @@ def merge_at_path(vals, idxs, out_k, label, card, rec, library=False) -> None:
     b, tiles, k = vals.shape
     ms = cuda_ms(lambda: tc.packed_candidate_merge(vals, idxs, out_k), reps=20)
     plain_ms = cuda_ms(lambda: tc.packed_candidate_merge_plain(vals, idxs, out_k), reps=3)
-    lib_ms = None
-    if library:
-        flat = vals.view(b, tiles * k)
-        lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
+    flat = vals.view(b, tiles * k)
+    lib_ms = cuda_ms(lambda: torch.topk(flat, out_k, dim=1), reps=20)
     # B2 reads every value once, gathers out_k indices per query (one
     # 32-byte sector each) and writes (value, index) pairs.
     bound = bound_ms(0.0, "int8", 4 * vals.numel() + 32 * b * out_k + 8 * b * out_k)
-    lib = f", torch.topk {lib_ms:.3f} ms" if lib_ms is not None else ""
     log(f"[{label}] B2 packed_candidate_merge B={b} pool={tiles} x {k} out_k={out_k}: "
-        f"bit-equal to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms{lib}, "
-        f"bound {bound[0]:.4f} ms by bytes; {card})")
+        f"bit-equal to its plain version; {ms:.4f} ms (plain {plain_ms:.3f} ms, torch.topk "
+        f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms by bytes; {card})")
     rec.kernel("packed_candidate_merge", label, ms, plain_ms, bound, lib_ms)
 
 
-def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
-                         b2_library=False):
+def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3):
     """B1 and B2 at the path's shapes against their plain versions (bit for
     bit), then their times beside their plain versions' and bounds."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
@@ -870,8 +918,7 @@ def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
         f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
         f"by {b1_bound[1]}; {card})")
     rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
-    merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec,
-                  library=b2_library)
+    merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec)
 
 
 def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
@@ -883,7 +930,7 @@ def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
     check_small_against_cpu(dev, "int8", dict(ell_max_degree=8, **opts), tf32=True)
     dq = torch.from_numpy(queries).to(dev)
     time_step(engine, dq, "int8", card, reps=5)
-    int8_kernels_at_path(engine, dq, "int8", card, rec, RESCORE, b2_library=True)
+    int8_kernels_at_path(engine, dq, "int8", card, rec, RESCORE)
 
 
 def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
@@ -912,7 +959,7 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     log(f"[F2] B5 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} of {kv.shape[0] * kv.shape[1]} tiles next to "
         f"a key-quantum boundary)")
-    del kv, ki, pv, pi
+    del pv, pi
     b5_ms = cuda_ms(lambda: tc.float_packed_tile_topk(qb, e, mask, k), reps=2)
     b5_plain_ms = cuda_ms(lambda: tc.float_packed_tile_topk_plain(qb, e, mask, k),
                           reps=1, warmup=0)
@@ -923,7 +970,7 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
         f"{b5_ms:.3f} ms (plain {b5_plain_ms:.3f} ms, bound {b5_bound[0]:.3f} ms by "
         f"{b5_bound[1]}; {card})")
     rec.kernel("float_packed_tile_topk", "F2", b5_ms, b5_plain_ms, b5_bound)
-    log(f"[F2] B2 launches on this path: {rec.launches['F2']['packed_candidate_merge']}")
+    merge_at_path(kv, ki, RESCORE, "F2", card, rec)
 
 
 SUPER_PATHS = {  # label -> (engine options, B7 kernel, supertile factor run)
@@ -991,8 +1038,7 @@ def path_super(label, index, graph, queries, ref, dev, card, rec, n_rows=N_ROWS,
         f"k_sub={k_sub}: {how}; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms by {bound[1]}; {card})")
     rec.kernel(kernel, label, ms, plain_ms, bound)
-    merge_at_path(vals, idxs, min(RESCORE, num_super * k_sub), label, card, rec,
-                  library=True)
+    merge_at_path(vals, idxs, min(RESCORE, num_super * k_sub), label, card, rec)
 
 
 def path_x(index, queries, dev, card, rec) -> None:
@@ -1086,6 +1132,48 @@ def path_x(index, queries, dev, card, rec) -> None:
     merge_at_path(kv, ki, X_TOP_K, "X", card, rec)
 
 
+SELECTION_KERNELS = ("int8_tile_topk", "int8_exact_tile_topk", "int8_super_tile_topk",
+                     "float_tile_topk", "float_packed_tile_topk",
+                     "float_packed_super_tile_topk", "packed_candidate_merge")
+LARGE_K_PATHS = {  # label -> (engine options, recall@256 gate)
+    "L1": (dict(), MIN_RECALL),
+    # int8 scores pick the 256 that the f32 rescore orders: quantization
+    # noise moves rows across the 256th place.
+    "L2": (dict(quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True),
+           LARGE_K_MIN_RECALL_INT8),
+}
+
+
+def path_large_k(index, graph, queries, dev, card, rec) -> None:
+    """top_k = 256, more than a per-tile list holds, through the JAX
+    engine's route off the TPU (`ops/similarity.py`): the default f32
+    engine (L1) and the int8 + f32 rescore engine (L2), B=64 over the 1M
+    rows, streamed in 2^17-row chunks.  No selection kernel may launch;
+    recall@256 against f32 brute force, the card against the CPU on 4
+    rows, and the step's time."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    lq = np.ascontiguousarray(queries[:LARGE_K_BATCH])
+    ref = brute_force_top_k(index.emb, lq, dev, k=LARGE_K)
+    for label, (opts, gate) in LARGE_K_PATHS.items():
+        engine = engine_ready(label, index, graph, dev, LARGE_K_BATCH, top_k=LARGE_K, **opts)
+        drive(engine, lq, (), label, ref, rec, top_k=LARGE_K, min_recall=gate,
+              forbidden=SELECTION_KERNELS)
+        rows = 4
+        cpu = QueryEngine(index, graph, device="cpu", ell_max_degree=8, **opts)
+        rc = cpu.query_batch(lq[:rows], top_k=LARGE_K)
+        rg = engine.query_batch(lq[:rows], top_k=LARGE_K)
+        if not np.array_equal(rg.top_indices, rc.top_indices) or \
+                np.abs(rg.top_scores - rc.top_scores).max() > 1e-5:
+            raise AssertionError(f"{label}: the card's top-{LARGE_K} differs from the CPU's")
+        log(f"[{label}] top-{LARGE_K} on the card equals the CPU's on {rows} rows "
+            f"(indices; scores within 1e-5)")
+        del cpu
+        time_step(engine, torch.from_numpy(lq).to(dev), label, card, reps=5, top_k=LARGE_K)
+        del engine
+        free(label)
+
+
 def path_f1(index, graph, ref, dev, card, rec) -> None:
     """The default engine: B4 over the f32 bank, B=1024, and the host API
     over it."""
@@ -1175,7 +1263,9 @@ def path_d3(index, graph, queries, ref, dev, card, rec) -> None:
     drive(engine, queries, ("int8_tile_topk", "packed_candidate_merge"), "D3", ref, rec,
           min_recall=D3_MIN_RECALL)
     check_small_against_cpu(dev, "D3", dict(ell_max_degree=8, **opts))
-    time_step(engine, torch.from_numpy(queries).to(dev), "D3", card, reps=5)
+    dq = torch.from_numpy(queries).to(dev)
+    time_step(engine, dq, "D3", card, reps=5)
+    int8_kernels_at_path(engine, dq, "D3", card, rec, RESCORE, b1_reps=1)
 
 
 def r_inputs(n: int):
@@ -1438,13 +1528,14 @@ def path_k(dev, card, rec) -> None:
     log(json.dumps(res))
     a = res["attribution"]
     b5 = res["b5_alone"]
-    log(f"[K] attribution of B5 alone ({b5:.3f} ms, B={b}, N={n}; {card}): dots "
-        f"{a['dots_ms']:.3f} ms ({100 * a['dots_share_of_b5']:.1f}%), wide writes "
-        f"{a['writes_ms']:.3f} ms, encode + level-1 {a['encode_level1_ms']:.3f} ms, level-2 "
-        f"selection {a['level2_ms']:.3f} ms; B5 + B2 {res['full_two_level']:.3f} ms; cuBLAS "
-        f"bf16 product of the same dots {res['library_matmul']:.3f} ms "
-        f"({a['library_speedup_over_dots']:.1f}x the dot loop's rate); B8a per dot at "
-        f"2048- / 128-row tiles {a['acc_2048_over_128']:.3f}")
+    log(f"[K] the CUDA-core dot loop (B8a-c; B={b}, N={n}; {card}): dots "
+        f"{a['dots_ms']:.3f} ms, wide writes {a['writes_ms']:.3f} ms, encode + level-1 "
+        f"{a['encode_level1_ms']:.3f} ms; cuBLAS bf16 product of the same dots "
+        f"{res['library_matmul']:.3f} ms ({a['library_speedup_over_dots']:.1f}x that loop's "
+        f"rate); B8a per dot at 2048- / 128-row tiles {a['acc_2048_over_128']:.3f}.  B5 "
+        f"alone (tensor cores, selection in the epilogue) {b5:.3f} ms, "
+        f"{a['b5_over_library']:.2f}x the cuBLAS product; B5 + B2 "
+        f"{res['full_two_level']:.3f} ms")
     if not 1 / 1.2 <= a["acc_2048_over_128"] <= 1.2:
         raise AssertionError("K: B8a's time per dot at 2048-row tiles is not within 20% of "
                              "its time at 128-row tiles: dots were dropped")
@@ -1563,6 +1654,7 @@ def main() -> int:
     free("F1")
     path_x(index, queries, dev, card, rec)
     free("X")
+    path_large_k(index, graph, queries, dev, card, rec)
     round_to_bf16(index.emb)
     path_d3(index, graph, queries, ref, dev, card, rec)
     free("D3")

@@ -8,9 +8,10 @@ Counterpart of `benchmarks/kernel_sweep.py`, over the same data (numpy
 bank cast to bf16, f32 queries, every row valid; by default 1,001,472 x 384
 rows and B=512) and under the same keys, in ms per call:
 
-  matmul_only_acc    kernel B8a: every dot of B5's loop, folded to a running
-                     max of each tile's first 128 columns — the read + dot
-                     floor of the port's B5;
+  matmul_only_acc    kernel B8a: every dot of the CUDA-core loop (B4's, and
+                     B5's over an f32 bank), folded to a running max of each
+                     tile's first 128 columns — the read + dot floor of that
+                     loop;
   matmul_only_wide   kernel B8b: the same dots, each tile's first 128
                      columns written out ([B, tiles * 128] f32) — + writes;
   encode_level1      kernel B8c: the same dots under B5's packed key, with
@@ -28,10 +29,14 @@ It adds `library_matmul`, one `torch.matmul` of the bf16 queries with the
 bank: cuBLAS doing the same 2*B*N*D dots on the tensor cores, with no fold
 (a [B, N] bf16 product); `b5_alone`, B5 without B2; and
 `matmul_only_acc_tile128`, B8a over 128-row tiles, where every dot reaches
-the output.  `attribution` splits b5_alone: the dots (matmul_only_acc), the
-writes (wide - acc), the encode and level-1 pass (encode - acc) and the
-level-2 selection (b5_alone - encode); `acc_2048_over_128`, the ratio of
-B8a's two times for the same dots, is near 1 when no dot is dropped.
+the output.  B8a-c run the CUDA-core dot loop (`csrc/float_dot.cuh`) that
+B4 and the f32 banks keep; B5 over this bf16 bank runs on the tensor cores,
+with its selection in the loop's epilogue.  So `attribution` splits the
+CUDA-core loop alone: its dots (matmul_only_acc), the writes (wide - acc)
+and the encode and level-1 pass (encode - acc); B5 is a row of its own,
+set beside the library's product (`b5_over_library`), and nothing is
+subtracted across the two loops.  `acc_2048_over_128`, the ratio of B8a's
+two times for the same dots, is near 1 when no dot is dropped.
 `launches` gives, for each row, the kernel launches its timed calls made.
 On the card the times are CUDA events (`utils.timing.device_time`); on the
 CPU the wrappers run their plain versions and the host clock times them.
@@ -135,9 +140,8 @@ def sweep(device: Union[str, torch.device], n: int = 1_000_000, d: int = 384, b:
         "dots_ms": acc,
         "writes_ms": out["matmul_only_wide"] - acc,
         "encode_level1_ms": out["encode_level1"] - acc,
-        "level2_ms": b5 - out["encode_level1"],
-        "dots_share_of_b5": acc / b5,
         "library_speedup_over_dots": acc / out["library_matmul"],
+        "b5_over_library": b5 / out["library_matmul"],
         "acc_2048_over_128": acc / out["matmul_only_acc_tile128"],
     }
     out["launches"] = launches

@@ -1,6 +1,8 @@
-// float_dot.cuh — the float dot loop that kernels B4, B5, B7f
-// (float_tile_topk.cu) and B8 (kernel_sweep.cu) share, so that the
-// stage-attribution kernels of B8 time the dots of the port's own B5.
+// float_dot.cuh — the float dot loop on the CUDA cores that kernel B4, B5
+// and B7f over an f32 bank (float_tile_topk.cu) and B8 (kernel_sweep.cu)
+// share, so that the stage-attribution kernels of B8 time the dots of the
+// port's own f32 loop.  B5 and B7f over a bf16 bank run on the tensor
+// cores instead (bf16_mma.cuh).
 //
 // A block takes QB = 64 queries.  `stage_queries` keeps them in shared memory
 // as f32, each row padded to d + 4 floats so that the threads' 16-byte loads
@@ -15,9 +17,7 @@
 // accumulated in f32 with __fmaf_rn in index order.  For a bf16 bank the
 // products of bf16 values are exact in f32; for an f32 bank they are full
 // f32 FMAs (no TF32).  The dots run on the CUDA cores: at 2*B*N*D operations
-// this loop, and not the memory, bounds every kernel that uses it, and
-// moving it onto the tensor cores (mma.sync / wgmma on bf16) moves B4, B5,
-// B7f and B8 together.
+// this loop, and not the memory, bounds every kernel that uses it.
 
 #pragma once
 

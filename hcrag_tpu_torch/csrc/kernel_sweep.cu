@@ -1,6 +1,6 @@
 // kernel_sweep.cu — kernel B8 of the port: the three stage-attribution
 // kernels of the kernel sweep, which split the time of the port's fused float
-// top-k (B5) into its stages.
+// top-k on the CUDA cores (B4, and B5 over an f32 bank) into its stages.
 //
 // They replace `make_matmul_only_acc` (B8a), `make_matmul_only_wide` (B8b)
 // and `make_encode_level1` (B8c) in benchmarks/kernel_sweep.py.  For queries
@@ -30,10 +30,11 @@
 // n = 1,001,472, d = 384) they do 2*b*n*d = 3.9e11 operations, 0.398 ms at
 // the 989 TFLOP/s bf16 tensor-core rate, against a 0.77 GB bank (0.23 ms at
 // 3.35 TB/s) and, for B8b, 128 MB of output: bound by operations.  They run
-// B5's dot loop (float_dot.cuh) on the CUDA cores, far above that bound, on
-// purpose: their times are the floor of the port's B5 and of its stages.
+// the CUDA-core dot loop (float_dot.cuh), far above that bound, on purpose:
+// their times are the floor of that loop and of its stages (B5 over a bf16
+// bank runs on the tensor cores and is timed beside them).
 //
-// Design: B5's grid and loop.  A block takes 64 queries and 2048 rows: one
+// Design: the CUDA-core kernel's grid and loop.  A block takes 64 queries and 2048 rows: one
 // tile of 2048 rows (B5's block), or 2048 / tile_n whole tiles of a smaller
 // tile, so that a block's work does not depend on tile_n.  Each thread
 // (tq, tr) owns columns tr + 16j and 64 + tr + 16j (j < 4) of every

@@ -1,7 +1,8 @@
 """Int8 index and query quantization.
 
-Counterpart of `quantize_rows`, `quantize_residual`, `quantized_scores` and
-`quantize_queries` in `hcrag_tpu/ops/quantize.py`.  Symmetric per-row
+Counterpart of `quantize_rows`, `quantize_residual`, `quantized_scores`,
+`quantize_queries` and `streaming_quantized_top_k` in
+`hcrag_tpu/ops/quantize.py`.  Symmetric per-row
 scales; scores recover as
 
     score[b, n] = int_dot[b, n] * q_scale[b] * e_scale[n]
@@ -22,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from hcrag_tpu_torch.ops.similarity import merge_chunk_top_k, dots, fast_top_k
 
 ROW_CHUNK = 1 << 16  # rows per chunk: 96 MB of f32 at D=384
 
@@ -126,13 +129,12 @@ def quantized_scores(
     e_int8: torch.Tensor,
     e_scale: torch.Tensor,
 ) -> torch.Tensor:
-    """Cosine scores [B, N] from int8 operands: the integer dots, then the
-    rank-1 rescale (dot * q_scale) * e_scale, in that order."""
-    check_exact_matmul()
-    dots = q_int8.to(torch.float32) @ e_int8.to(torch.float32).T
-    return dots * q_scale[:, None].to(torch.float32) * e_scale[None, :].to(
-        torch.float32
-    )
+    """Cosine scores [B, N] from int8 operands: the integer dots (exact,
+    `similarity.dots`), then the rank-1 rescale (dot * q_scale) * e_scale,
+    in that order."""
+    return dots(q_int8, e_int8) * q_scale[:, None].to(torch.float32) * e_scale[
+        None, :
+    ].to(torch.float32)
 
 
 #: 1/127 rounded to float32.  The JAX engine quantizes its queries inside
@@ -152,3 +154,31 @@ def quantize_queries(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     qi = torch.clamp(torch.round(q / safe[:, None]), -127, 127).to(torch.int8)
     return qi, scale.to(torch.float32)
+
+
+def streaming_quantized_top_k(
+    q: torch.Tensor,
+    e_int8: torch.Tensor,
+    e_scale: torch.Tensor,
+    valid_mask: torch.Tensor,
+    k: int,
+    chunk_rows: int = 1 << 17,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked top-k over an int8 index [N, D] with row scales [N], streamed
+    over `chunk_rows`-row chunks: the queries [B, D] are quantized
+    (`quantize_queries`), each chunk's `quantized_scores` (filtered rows at
+    -inf) give their top-k, and one position-stable top-k merges them.
+    Returns (values [B, k], indices [B, k] int32), k = min(k, N); ties to
+    the lowest global index."""
+    n = e_int8.shape[0]
+    k = min(k, n)
+    qi, qs = quantize_queries(q.to(torch.float32))
+    neg = torch.tensor(float("-inf"), device=q.device)
+    vals, idxs = [], []
+    for lo in range(0, n, chunk_rows):
+        hi = min(n, lo + chunk_rows)
+        s = quantized_scores(qi, qs, e_int8[lo:hi], e_scale[lo:hi])
+        v, i = fast_top_k(torch.where(valid_mask[None, lo:hi], s, neg), min(k, hi - lo))
+        vals.append(v)
+        idxs.append(i + lo)
+    return merge_chunk_top_k(vals, idxs, k)

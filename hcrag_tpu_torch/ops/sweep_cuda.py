@@ -2,9 +2,9 @@
 
 Counterpart of `make_matmul_only_acc`, `make_matmul_only_wide` and
 `make_encode_level1` (benchmarks/kernel_sweep.py): stripped-down versions of
-the fused float top-k (kernel B5) over the same bank, whose differences in
-time split B5's time into its stages
-(`hcrag_tpu_torch.benchmarks.kernel_sweep`).  For queries q [B, D] and a
+the fused float top-k on the CUDA cores (the loop of kernel B4 and of B5
+over an f32 bank) over the same bank, whose differences in time split that
+loop's time into its stages (`hcrag_tpu_torch.benchmarks.kernel_sweep`).  For queries q [B, D] and a
 bf16 bank e [N, D] of whole `tile_n`-row tiles, s = q . e^T in f32:
 
   * `matmul_only_acc` (kernel B8a) — out [B, 128] f32, the running max over
@@ -18,7 +18,7 @@ bf16 bank e [N, D] of whole `tile_n`-row tiles, s = q . e^T in f32:
     tile's 128-column groups, and their max over the tiles from 0, as
     [m1 | m2]: the same dots plus the encode and the level-1 per-lane top-2.
 
-All three are csrc/kernel_sweep.cu, whose dot loop is B5's (csrc/float_dot.cuh)
+All three are csrc/kernel_sweep.cu, whose dot loop is csrc/float_dot.cuh's
 and computes every dot of s, whether or not it reaches the output.  The
 queries are cast to bf16, as the Pallas kernels cast them to the bank's type.
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its

@@ -58,16 +58,18 @@ _SIGNATURES = {
     "int8_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "int8_exact_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "int8_super_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
-    "packed_candidate_merge": (_VP,) * 5 + (_I,) * 5 + (_VP,),
+    "packed_candidate_merge": (_VP,) * 4 + (_I,) * 5 + (_VP,),
     "float_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_super_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    "bf16_tc_dots": (_VP,) * 3 + (_I,) * 3 + (_VP,),
 }
 _SOURCES = {  # entry point -> csrc/<source>.cu, where the two differ
     "int8_exact_tile_topk": "int8_tile_topk",
     "int8_super_tile_topk": "int8_tile_topk",
     "float_packed_tile_topk": "float_tile_topk",
     "float_packed_super_tile_topk": "float_tile_topk",
+    "bf16_tc_dots": "float_tile_topk",
 }
 
 
@@ -327,27 +329,26 @@ def packed_candidate_merge_plain(
     )
 
 
-# B2 selects in chunks of whole tiles whose 4-byte keys fit one block's
-# shared memory (less 8 warps' 8-byte bests); with more than one chunk, a
-# second pass merges the chunks' 8-byte winners (csrc/packed_candidate_merge.cu).
-_MERGE_KEY_BYTES = _SMEM_LIMIT - 64
-_MERGE_WORD_BYTES = 8
+#: Warps resident at once on half of an H100's 132 SMs' 64 slots: B2 splits
+#: a query over more warps until the batch fills that many.
+_MERGE_TARGET_WARPS = 132 * 32
 
 
-def merge_chunks(tiles: int, k: int) -> Tuple[int, int]:
-    """(tiles per chunk, chunks) of kernel B2 over a [tiles, k] pool: the
-    fewest chunks whose keys fit one block (58,096 keys), with their tiles
-    spread evenly."""
-    chunks = -(-tiles // max(1, _MERGE_KEY_BYTES // (4 * k)))
-    return -(-tiles // chunks), chunks
+def merge_warps(b: int) -> int:
+    """Warps per query of kernel B2 over a batch of b queries: the fewest
+    of 1, 2, 4 and 8 that give b * warps >= 4224, else 8."""
+    w = 1
+    while w < 8 and b * w < _MERGE_TARGET_WARPS:
+        w *= 2
+    return w
 
 
 def packed_candidate_merge(
     v: torch.Tensor, i: torch.Tensor, out_k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B2 for CUDA tensors, its plain version for CPU tensors (see
-    `packed_candidate_merge_plain` for the contract).  A pool of any size:
-    past one block's shared memory it selects in chunks (`merge_chunks`)."""
+    `packed_candidate_merge_plain` for the contract).  A pool of any size,
+    streamed from device memory; out_k up to 128."""
     if v.device.type == "cpu":
         return packed_candidate_merge_plain(v, i, out_k)
     _require_cuda(v, "v")
@@ -356,20 +357,14 @@ def packed_candidate_merge(
     dev = v.device
     _check(v, "v", torch.float32, (b, tiles, k), dev)
     _check(i, "i", torch.int32, (b, tiles, k), dev)
-    if b == 0 or not 1 <= out_k <= c:
-        raise ValueError(f"need b >= 1 and 1 <= out_k <= {c}, got b={b}, out_k={out_k}")
-    chunk_tiles, chunks = merge_chunks(tiles, k)
-    if _MERGE_WORD_BYTES * chunks * out_k > _MERGE_KEY_BYTES:
-        raise ValueError(f"{chunks} chunks x out_k={out_k} do not fit one block's "
-                         "shared memory")
+    if b == 0 or not 1 <= out_k <= min(c, MAX_TILE_K):
+        raise ValueError(f"need b >= 1 and 1 <= out_k <= min({c}, {MAX_TILE_K}), "
+                         f"got b={b}, out_k={out_k}")
     out_v = torch.empty((b, out_k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, out_k), dtype=torch.int32, device=dev)
-    words = (torch.empty((b, chunks, out_k), dtype=torch.int64, device=dev)
-             if chunks > 1 else None)
     err = _kernel("packed_candidate_merge")(
-        v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        None if words is None else words.data_ptr(), b, tiles, k, out_k,
-        chunk_tiles, torch.cuda.current_stream(dev).cuda_stream,
+        v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), b, tiles, k,
+        out_k, merge_warps(b), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"packed_candidate_merge launch failed: CUDA error {err}")
@@ -467,6 +462,14 @@ def float_packed_tile_topk_plain(
                                e.shape[0], k, tile_n, LANE_BITS, q.device)
 
 
+def tc_smem_bytes(qb: int, d: int, k: int) -> int:
+    """Shared memory of the tensor-core kernel of B5 / B7f over a bf16 bank
+    with qb queries per block: 1024 bytes of alignment, the query block,
+    four 64 x 64 chunks of rows with their two mbarriers each, the key
+    buffers, the lists and their counts."""
+    return 1024 + 2 * qb * d + 4 * (64 * 128 + 16) + 4 * (qb * 64 + qb * k + qb)
+
+
 def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
     """Check the operands of kernel B4, B5 or B7f and launch it."""
     _require_cuda(q, "q")
@@ -484,8 +487,12 @@ def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
         raise ValueError("rows must be multiples of 64 values on 16-byte boundaries")
     _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
-    # Query block, staged rows, key buffer and lists (csrc/float_tile_topk.cu).
-    smem = 4 * (64 * (d + 4) + 64 * 68) + key_bytes * 64 * (68 + k) + 4 * 64
+    if key_bytes == 4 and e.dtype == torch.bfloat16:
+        smem = min(tc_smem_bytes(qb, d, k) for qb in (64, 128))
+    else:
+        # Query block, staged rows, key buffer and lists
+        # (csrc/float_tile_topk.cu's CUDA-core kernel).
+        smem = 4 * (64 * (d + 4) + 64 * 68) + key_bytes * 64 * (68 + k) + 4 * 64
     if smem > _SMEM_LIMIT or tiles > 65535:
         raise ValueError(
             f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
@@ -647,6 +654,33 @@ def float_packed_super_tile_topk(
 float_packed_super_tile_topk.launches = 0
 
 
+def bf16_tc_dots(q: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """The sums of the tensor-core loop that B5 and B7f run over a bf16
+    bank, without their selection: [b, n] f32 dots of bf16 queries q [b, d]
+    with bf16 rows e [n, d].  Not on a query path: it measures how far that
+    loop's sums lie from the float64 dots (`testing.py`).  CPU tensors take
+    the float64 dots rounded to f32."""
+    if q.device.type == "cpu":
+        return (q.double() @ e.double().T).float()
+    _require_cuda(q, "q")
+    b, d = q.shape
+    n = e.shape[0]
+    _check(q, "q", torch.bfloat16, (b, d), q.device)
+    _check(e, "e", torch.bfloat16, (n, d), q.device)
+    if d % 64 or b == 0 or n == 0:
+        raise ValueError("bf16_tc_dots needs d % 64 == 0 and non-empty operands")
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    err = _kernel("bf16_tc_dots")(q.data_ptr(), e.data_ptr(), out.data_ptr(), b, n, d,
+                                  torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bf16_tc_dots launch failed: CUDA error {err}")
+    bf16_tc_dots.launches += 1
+    return out
+
+
+bf16_tc_dots.launches = 0
+
+
 def uses_packed_super_merge(num_super: int, k_sub: int, out_k: int) -> bool:
     """Whether the merge of a [num_super, k_sub] supertile pool goes
     through kernel B2: pools of >= 1024 candidates with out_k <= 128, as
@@ -715,11 +749,13 @@ def _two_level_feasible(tile_n: int) -> bool:
 
 
 def _check_tile_k(top_k: int, n: int) -> int:
+    """min(top_k, n), refused past the per-tile limit, as the Pallas
+    kernels assert it (`topk_pallas.py:691`, :975)."""
     k = min(top_k, n)
     if k > MAX_TILE_K:
         raise ValueError(
-            f"top_k={top_k} over {n} rows: per-tile selection keeps at most "
-            f"{MAX_TILE_K} candidates (ROADMAP.md A6d)"
+            f"top_k={top_k}: a per-tile selection keeps at most {MAX_TILE_K} "
+            "candidates (QueryEngine selects more through ops/similarity.py)"
         )
     return k
 

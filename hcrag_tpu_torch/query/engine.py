@@ -33,10 +33,15 @@ and the 0.7/0.3 blend of relevance and similarity.  `retrieve_batch_device`
 runs the selection alone; `find_similar_content`, `process_query` and
 `search_by_category` are the reference-shaped host API over the step.
 
-The selections are the CUDA kernels of `ops/topk_cuda.py`; the rest is plain
-PyTorch on the engine's device.  Its f32 dot products are elementwise
-products and sums, so no TF32 / `float32_matmul_precision` setting changes
-them (the JAX engine pins `Precision.HIGHEST`).
+The selections are the CUDA kernels of `ops/topk_cuda.py`.  Past 128
+candidates (top_k or the rescore's oversample), which the kernels' per-tile
+lists do not hold, the engine selects as the JAX engine does off the TPU:
+the dense product and `masked_top_k`, streamed in row chunks past 2^18 rows
+(`ops/similarity.py`, `ops/quantize.py`).  The rest is plain PyTorch on the
+engine's device.  Its f32 dot products are elementwise products and sums,
+and the route's products are taken in float64, so no TF32 /
+`float32_matmul_precision` setting changes them (the JAX engine pins
+`Precision.HIGHEST`).
 """
 
 from __future__ import annotations
@@ -72,11 +77,24 @@ from hcrag_tpu_torch.ingest.entities import (
 )
 from hcrag_tpu_torch.models.embedder import embedder_from_index
 from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
-from hcrag_tpu_torch.ops.quantize import quantize_bank
+from hcrag_tpu_torch.ops.quantize import (
+    quantize_bank,
+    quantize_queries,
+    quantized_scores,
+    streaming_quantized_top_k,
+)
 from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
+from hcrag_tpu_torch.ops.similarity import (
+    STREAMING_MIN_ROWS,
+    dots,
+    masked_top_k,
+    streaming_masked_top_k,
+)
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
 from hcrag_tpu_torch.ops.topk_cuda import (
     MAX_SUPER_ROWS,
+    MAX_TILE_K,
+    NEG_INF,
     cosine_top_k,
     cosine_top_k_int8,
     resolve_super_tiles,
@@ -361,15 +379,18 @@ class QueryEngine:
         return tile, resolve_super_tiles(self.pallas_super, tile, -(-self._n_bank // tile))
 
     def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
-        """The mode's selection kernel + merge over the bank: (values
-        [B, m], row indices [B, m]) with m = max(top_k, fetch_k) candidates;
-        no rescore here.  An int8 bank takes the packed selection in every
-        mode: with a rescore it stands for the JAX engine's fused two-level
-        branch (whose exact contract it computes), without one for the
-        k-pass branch; the calls differ only in merge_k, hence in the
-        per-tile pick count and the merge's out_k.  `_select_plan` gives
-        the tile and the supertiles."""
+        """The mode's selection over the bank: (values [B, m], row indices
+        [B, m]) with m = max(top_k, fetch_k) candidates; no rescore here.
+        Where the per-tile kernels cannot hold m (`_dense_route`), the JAX
+        engine's route off the TPU (`_dense_select`).  Otherwise an int8
+        bank takes the packed selection in every mode: with a rescore it
+        stands for the JAX engine's fused two-level branch (whose exact
+        contract it computes), without one for the k-pass branch; the calls
+        differ only in merge_k, hence in the per-tile pick count and the
+        merge's out_k.  `_select_plan` gives the tile and the supertiles."""
         m = max(top_k, fetch_k)
+        if self._dense_route(m):
+            return self._dense_select(q_emb, bank, type_mask, m)
         merge_k = m if m > top_k else 0
         sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
         pad = sel.shape[0] - type_mask.shape[0]
@@ -387,6 +408,39 @@ class QueryEngine:
             q_emb, sel, type_mask, top_k, tile_n=tile, merge_k=merge_k,
             packed_select=self.exact_rescore > 0, super_tiles=spt,
         )
+
+    def _dense_route(self, m: int) -> bool:
+        """Whether a selection of m candidates leaves the kernels: m, capped
+        at the bank's rows, above the 128 a per-tile list holds."""
+        return min(m, self._n_bank) > MAX_TILE_K
+
+    def _dense_select(self, q_emb, bank, type_mask, m: int):
+        """The JAX engine's selection off the TPU (`engine.py:619-639`),
+        over the unpadded rows: a float bank takes its dots and
+        `masked_top_k`, an int8 bank `quantized_scores` and `masked_top_k`;
+        past 2^18 rows the streaming variants.  Filtered rows come back at
+        -inf with their own indices, as there; slots past the rows are
+        (-1e30, -1) fillers."""
+        n = self._n_rows
+        mask = type_mask[:n]
+        if self.quantize_int8:
+            e8, es = bank["emb_int8"][:n], bank["emb_scale"][:n]
+            if n > STREAMING_MIN_ROWS:
+                v, i = streaming_quantized_top_k(q_emb, e8, es, mask, m)
+            else:
+                qi, qs = quantize_queries(q_emb.to(torch.float32))
+                v, i = masked_top_k(quantized_scores(qi, qs, e8, es), mask, m)
+        else:
+            emb = bank["emb"][:n]
+            if n > STREAMING_MIN_ROWS:
+                v, i = streaming_masked_top_k(q_emb, emb, mask, m)
+            else:
+                v, i = masked_top_k(dots(q_emb.to(emb.dtype), emb), mask, m)
+        short = m - v.shape[1]
+        if short > 0:
+            v = torch.nn.functional.pad(v, (0, short), value=NEG_INF)
+            i = torch.nn.functional.pad(i, (0, short), value=-1)
+        return v, i
 
     def _rescore_m(self) -> int:
         """Oversample of the exact rescore (0 = off)."""
@@ -416,7 +470,9 @@ class QueryEngine:
         clamped against the padded bank (the JAX engine's report clamps
         against the unpadded rows and can differ on small indexes); `lane_t`
         is 0 and `two_level` False because every tile is selected
-        exactly."""
+        exactly.  Past 128 candidates `kernel` names the function of the
+        route without a kernel (`_dense_select`), with no tile and no
+        merge."""
         m = self._rescore_m()
         merge_k = m if m > top_k else 0
         packed = self.quantize_int8 or self.exact_rescore > 0
@@ -424,33 +480,43 @@ class QueryEngine:
         n_bank = int(sel.shape[0])
         tile, spt = self._select_plan(batch)
         tiles = -(-n_bank // tile)
-        if spt > 1:
-            lbits = spt * tile
-            tile_k = super_pick_count(top_k, n_bank, lbits, merge_k)
-            num_super = -(-n_bank // lbits)
-            out_k = min(max(min(top_k, n_bank), merge_k), num_super * tile_k)
-            packed_merge = uses_packed_super_merge(num_super, tile_k, out_k)
-        elif packed:
-            tile_k = tile_pick_count(top_k, n_bank, tile, merge_k)
-            packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
-        else:
-            tile_k, packed_merge = min(top_k, n_bank), False
-        kernel = (
-            ("int8_super_tile_topk" if spt > 1 else "int8_tile_topk")
-            if self.quantize_int8
-            else "float_packed_super_tile_topk" if spt > 1
-            else "float_packed_tile_topk" if packed
-            else "float_tile_topk"
-        )
         plain = "" if self.device.type == "cuda" else "_plain"
+        if self._dense_route(max(top_k, m)):
+            streaming = self._n_rows > STREAMING_MIN_ROWS
+            if self.quantize_int8:
+                kernel = ("streaming_quantized_top_k" if streaming
+                          else "quantized_scores+masked_top_k")
+            else:
+                kernel = "streaming_masked_top_k" if streaming else "masked_top_k"
+            merge, packed, tile, tile_k, spt = "none", False, 0, 0, 1
+        else:
+            if spt > 1:
+                lbits = spt * tile
+                tile_k = super_pick_count(top_k, n_bank, lbits, merge_k)
+                num_super = -(-n_bank // lbits)
+                out_k = min(max(min(top_k, n_bank), merge_k), num_super * tile_k)
+                packed_merge = uses_packed_super_merge(num_super, tile_k, out_k)
+            elif packed:
+                tile_k = tile_pick_count(top_k, n_bank, tile, merge_k)
+                packed_merge = uses_packed_merge(tiles, tile_k, merge_k)
+            else:
+                tile_k, packed_merge = min(top_k, n_bank), False
+            kernel = (
+                ("int8_super_tile_topk" if spt > 1 else "int8_tile_topk")
+                if self.quantize_int8
+                else "float_packed_super_tile_topk" if spt > 1
+                else "float_packed_tile_topk" if packed
+                else "float_tile_topk"
+            ) + plain
+            merge = "packed_candidate_merge" + plain if packed_merge else "stable_sort"
         return {
             "quantize_int8": self.quantize_int8,
             "int8_only": self.int8_only,
             "int8_residual": self.int8_residual,
             "rescore_oversample": m,
             "merge_k": merge_k,
-            "kernel": kernel + plain,
-            "merge": "packed_candidate_merge" + plain if packed_merge else "stable_sort",
+            "kernel": kernel,
+            "merge": merge,
             "packed_select": packed,
             "two_level": False,
             "tile_n": tile,

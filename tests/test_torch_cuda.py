@@ -494,3 +494,114 @@ def test_sweep_acc_keeps_every_dot(cuda):
     t = {tile: device_time(sweep_cuda.matmul_only_acc, q, e, tile, iters=5, device=cuda)
          for tile in (2048, 128)}
     assert 1 / 1.2 <= t[2048] / t[128] <= 1.2, t
+
+
+@pytest.mark.parametrize("b", [4229, 2049, 7])
+def test_packed_candidate_merge_several_queries_per_block(cuda, b):
+    """B2 with 8 (b >= 4224), 2 (b = 2049: four warps a query) and one
+    query per block of 8 warps, over a batch that is not a multiple of the
+    block's queries; ties and fillers included."""
+    rng = np.random.default_rng(b)
+    v = np.round(rng.standard_normal((b, 489, 10)) * 8) / 64
+    v[:, -20:] = -1e30
+    i = rng.integers(0, 1 << 20, size=(b, 489, 10)).astype(np.int32)
+    v = torch.from_numpy(v.astype(np.float32)).to(cuda)
+    i = torch.from_numpy(i).to(cuda)
+    assert 8 // topk_cuda.merge_warps(b) == {4229: 8, 2049: 2, 7: 1}[b]
+    kv, ki = topk_cuda.packed_candidate_merge(v, i, 32)
+    pv, pi = topk_cuda.packed_candidate_merge_plain(v, i, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+# (b, n, d, k, tile or supertile rows): ragged tiles, masked rows, ragged
+# query blocks, per-tile k from 1 to 128; d = 768 takes the kernel's
+# 64-query blocks (128 do not fit shared memory).
+TC_CASES = [(130, 9000, 384, 1, 2048), (70, 5000, 128, 10, 2048),
+            (200, 4500, 384, 100, 2048), (64, 4096, 128, 128, 1024),
+            (130, 20_000, 384, 10, 8192), (130, 9000, 128, 128, 4096),
+            (129, 5000, 384, 100, 2048), (70, 5000, 768, 16, 2048)]
+
+
+@pytest.mark.parametrize("b,n,d,k,rows", TC_CASES)
+def test_tensor_core_b5_b7f_exact_dots_bit_equal(cuda, b, n, d, k, rows):
+    """B5 (rows <= 2048) and B7f over a bf16 bank run on the tensor cores;
+    on dots exact in any order they equal their plain versions bit for
+    bit, for B5 at its 2048-row lane field and B7f at `rows`."""
+    q, e, mask = _dyadic_inputs(b, n, d, b + k + d, cuda, torch.bfloat16)
+    outs = [(topk_cuda.float_packed_super_tile_topk(q, e, mask, k, rows),
+             topk_cuda.float_packed_super_tile_topk_plain(q, e, mask, k, rows))]
+    if rows <= 2048:
+        outs.append((topk_cuda.float_packed_tile_topk(q, e, mask, k, tile_n=rows),
+                     topk_cuda.float_packed_tile_topk_plain(q, e, mask, k, tile_n=rows)))
+    torch.cuda.synchronize()
+    for (kv, ki), (pv, pi) in outs:
+        assert torch.equal(ki, pi)
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,n,d,k,rows", TC_CASES)
+def test_tensor_core_b5_b7f_normal_inputs(cuda, b, n, d, k, rows):
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    q, e, mask = _float_inputs(b, n, d, b + k + d + 1, cuda, torch.bfloat16)
+    kv, ki = topk_cuda.float_packed_super_tile_topk(q, e, mask, k, rows)
+    pv, pi = topk_cuda.float_packed_super_tile_topk_plain(q, e, mask, k, rows)
+    torch.cuda.synchronize()
+    check_packed_topk(kv, ki, pv, pi, q, e, lane_bits=rows)
+
+
+def test_tensor_core_dots_within_the_band(cuda):
+    """The tensor-core loop's sums lie within `testing.TC_DOT_ERROR` of the
+    float64 dots, and are exact on dyadic inputs."""
+    from hcrag_tpu_torch.testing import TC_DOT_ERROR
+
+    q, e, _ = _float_inputs(256, 20_000, 384, 3, cuda, torch.bfloat16)
+    got = topk_cuda.bf16_tc_dots(q, e)
+    err = float((got.double() - q.double() @ e.double().T).abs().max())
+    assert err <= TC_DOT_ERROR
+    q, e, _ = _dyadic_inputs(64, 3000, 128, 4, cuda, torch.bfloat16)
+    assert torch.equal(topk_cuda.bf16_tc_dots(q, e), (q.double() @ e.double().T).float())
+
+
+@pytest.mark.parametrize("mode", ["f32", "rescore", "int8"])
+def test_large_k_route_on_card_equals_cpu(cuda, mode):
+    """top_k = 300 takes the route without a kernel (ops/similarity.py) on
+    the card too: the same answer as on the CPU (two rows may trade places
+    only where their float64 scores lie within 1e-6: the rescore's f32
+    sums are taken in another order), with TF32 on or off, and no
+    selection kernel launched."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(5000, 384, graph_degree=4)
+    opts = dict(ell_max_degree=8, **FLOAT_MODES[mode])
+    q = np.random.default_rng(2).standard_normal((16, 384)).astype(np.float32)
+    gpu = QueryEngine(index, graph, device=cuda, **opts)
+    names = ("int8_tile_topk", "float_tile_topk", "float_packed_tile_topk",
+             "packed_candidate_merge")
+    before = [getattr(topk_cuda, n).launches for n in names]
+    rg = gpu.query_batch(q, top_k=300)
+    assert [getattr(topk_cuda, n).launches for n in names] == before
+    rc = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, top_k=300)
+    moved = rg.top_indices != rc.top_indices
+    if moved.any():
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        exact = qn.astype(np.float64) @ np.asarray(index.emb, np.float64).T
+        rows = np.nonzero(moved)[0]
+        np.testing.assert_allclose(exact[rows, rg.top_indices[moved]],
+                                   exact[rows, rc.top_indices[moved]], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(rg.top_scores, rc.top_scores, atol=1e-5, rtol=0)
+    for f in ("relevance", "combined"):  # of the same rows
+        np.testing.assert_allclose(getattr(rg, f)[~moved], getattr(rc, f)[~moved], atol=1e-5,
+                                   rtol=0)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        rt = gpu.query_batch(q, top_k=300)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(rt, f), getattr(rg, f), err_msg=f)

@@ -194,13 +194,13 @@ def test_merge_routing_at_bench_pool():
 
 def test_merge_routing_past_one_block():
     """10M rows at per-tile k = 12: 4,883 tiles x 12 = 58,596 candidates,
-    more than one block's shared memory holds, still route through B2 (in
-    two chunks on the card) and equal `_merge_tile_candidates`, ties by
-    slot-major position included."""
+    more than one block's shared memory holds, still route through B2
+    (which streams the pool from device memory, a small batch's query over
+    8 warps) and equal `_merge_tile_candidates`, ties by slot-major
+    position included."""
     rng = np.random.default_rng(11)
     b, tiles, k = 2, 4883, 12
-    assert topk_cuda.merge_chunks(tiles, 10) == (tiles, 1)
-    assert topk_cuda.merge_chunks(tiles, k) == (2442, 2)
+    assert [topk_cuda.merge_warps(x) for x in (b, 2048, 4224, 8192)] == [8, 4, 1, 1]
     assert topk_cuda.uses_packed_merge(tiles, k, 32)
     vals = -np.sort(-rng.random((b, tiles, k)).astype(np.float32), axis=2)
     vals = np.round((vals * 2 - 1) * 64) / 64  # quantized keys tie often
