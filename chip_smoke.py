@@ -8,11 +8,17 @@ last line:
 
   1. card    — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every kernel source from csrc/, all in parallel
-               (sm_90a);
+               (sm_90a), and prints each kernel's registers, stack and spill
+               bytes (ptxas); the int8 library's machine code (cuobjdump)
+               must show the int8 wgmma in every tensor-core kernel of B1
+               and B7i and __dp4a only in B3e's;
   3. kernels — every kernel against its plain PyTorch version on the card:
                B1, B3e, B7i and B2 bit for bit (b=512 at D=384 over 20 tiles
                with a ragged last tile and masked rows, the 4890-candidate
-               pool, all-tied input, a small pool, batches that put 8 and 2
+               pool, all-tied input, a small pool; B1 and B7i on the int8
+               tensor cores at k 1-128, d 16-768, tiles of 64-2048 rows and
+               supertiles of 128 and 8192, batches of 1-8192, under a
+               filter that leaves fewer than k rows; batches that put 8 and 2
                queries in a block with a partial last block, pools past
                one block's shared memory (10M rows at per-tile k = 12, and
                k = 128), the per-tile pick-count raise, B3e under filters
@@ -86,12 +92,14 @@ Between the 1M-row paths and path R, path K runs the kernel sweep
 (`hcrag_tpu_torch.benchmarks.kernel_sweep`) over its own bank, the JAX
 sweep's data (1,001,472 x 384 bf16 rows, B=512): kernels B8a-c
 (`matmul_only_acc`, `matmul_only_wide`, `encode_level1`), B5 + B2, B4, B5
-alone and one cuBLAS bf16 product, each launch counted per timed row; it
+alone and one cuBLAS bf16 product, B1 alone over the bank quantized on the
+card and one `torch._int_mm` of the same int8 operands, each launch counted
+per timed row; it
 prints the sweep's JSON line, the split of the CUDA-core dot loop (B8a-c)
 and B5 on the tensor cores beside the cuBLAS product, checks that B8a's
 time per dot is the same at 128- and 2048-row tiles (no dot dropped), and
 holds B8a-c against their plain versions at the sweep's shapes (B8a/B8b
-within 1e-5, B8c by `testing.check_level1`).  The
+within 1e-5, B8c by `testing.check_level1`) and B1 bit for bit.  The
 kernel phase also holds B8a-c bit for bit on exact dots (d=384; tiles of
 2048, 1024 and 128 rows; b=512 and a ragged 200; negative keys in B8c).
 
@@ -191,6 +199,43 @@ def b1_inputs(b, n, d, seed, dev, tied=False, mask_frac=0.1):
     return q8, qs, torch.from_numpy(e8).to(dev), torch.from_numpy(es).to(dev), mask
 
 
+def check_int8_sass(build) -> None:
+    """The built int8 library's machine code: every tensor-core kernel of B1
+    and B7i (Int8, PackedKey / SuperKey) issues the int8 wgmma (IGMMA, from
+    wgmma.mma_async ... s32.s8.s8) and no __dp4a (IDP.4A); __dp4a is left
+    only in B3e's kernel.  Raises otherwise."""
+    ops = build.sass_opcodes(build.library_path("int8_tile_topk"))
+    tc_fns = [f for f in ops if f.startswith("tc_tile_topk_kernel") and "Int8" in f]
+    if len(tc_fns) != 8:
+        raise AssertionError(f"expected 8 int8 tensor-core kernels, found {sorted(ops)}")
+    for f in sorted(ops):
+        igmma = sum(op.startswith("IGMMA") for op in ops[f])
+        idp = sum(op.startswith("IDP") for op in ops[f])
+        log(f"[build] int8_tile_topk SASS: {f}: {igmma} IGMMA (int8 wgmma), {idp} IDP.4A "
+            "(__dp4a)")
+        if f in tc_fns and (igmma < 1 or idp):
+            raise AssertionError(f"{f}: not on the int8 tensor cores alone")
+        if f not in tc_fns and idp and not f.startswith("int8_exact_tile_topk_kernel"):
+            raise AssertionError(f"{f}: __dp4a outside B3e")
+    log("[build] B1 and B7i (int8_tile_topk, int8_super_tile_topk) run wgmma s32.s8.s8 "
+        "in every instantiation; __dp4a is left only in B3e's kernel")
+
+
+# (b, n, d, k, tile_n) of B1 and (b, n, d, k_sub, lbits) of B7i on the int8
+# tensor cores: k 1-16 take the register lists, 17-128 the shared-memory
+# lists; d of 16 and 48 leave most of a 128-column chunk to the zero fill;
+# tiles of 64-2048 rows and supertiles of 128 and 8192; batches of 1-8192
+# (ragged query blocks); ragged last tiles; d = 768 at k = 128 is the widest
+# block that still takes 128 queries.
+INT8_TC_B1 = ((1, 3000, 16, 1, 64), (65, 9000, 48, 10, 1024), (130, 4500, 128, 16, 2048),
+              (130, 5000, 384, 17, 2048), (65, 3000, 768, 64, 1024),
+              (8192, 2100, 384, 10, 2048), (70, 4100, 128, 128, 2048),
+              (130, 9000, 16, 64, 64), (130, 5000, 768, 128, 2048))
+INT8_TC_B7I = ((65, 5000, 48, 16, 128), (130, 20_000, 384, 10, 8192),
+               (1, 9000, 768, 128, 8192), (8192, 9000, 128, 17, 8192),
+               (130, 3000, 16, 64, 128), (65, 20_000, DIM, 1, 8192))
+
+
 def phase_kernels(dev) -> dict:
     """Every kernel against its plain version; returns the max abs errors."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
@@ -204,7 +249,7 @@ def phase_kernels(dev) -> dict:
         err["int8_tile_topk"] = max(err["int8_tile_topk"], e)
         log(f"  B1 {name}: b={args[0].shape[0]} n={args[2].shape[0]} "
             f"d={args[0].shape[1]} k={k} tile={tile}: bit-equal")
-        return ki
+        return kv, ki
 
     def b2(name, v, i, out_k):
         kv, ki = tc.packed_candidate_merge(v, i, out_k)
@@ -220,17 +265,30 @@ def phase_kernels(dev) -> dict:
     # The main path's width and tile: b=512 over 20 tiles of 2048, the last
     # ragged, a tenth of the rows masked.
     b1("bench", b1_inputs(512, 40_000, DIM, 0, dev), TOP_K, 2048)
-    ki = b1("all_tied", b1_inputs(64, 5000, DIM, 1, dev, tied=True, mask_frac=0.0),
-            TOP_K, 1024)
-    want = (torch.arange(5, device=dev)[:, None] * 1024
-            + torch.arange(TOP_K, device=dev)).to(torch.int32)
-    if not torch.equal(ki, want.expand(64, 5, TOP_K)):
-        raise AssertionError("all-tied rows did not give the lowest indices")
+    for k in (TOP_K, 64):
+        _, ki = b1(f"all_tied k={k}", b1_inputs(64, 5000, DIM, 1, dev, tied=True,
+                                                mask_frac=0.0), k, 1024)
+        want = (torch.arange(5, device=dev)[:, None] * 1024
+                + torch.arange(k, device=dev)).to(torch.int32)
+        if not torch.equal(ki, want.expand(64, 5, k)):
+            raise AssertionError("all-tied rows did not give the lowest indices")
     k_raised = tc.tile_pick_count(TOP_K, 2100, 2048, RESCORE)
     if k_raised != 16:
         raise AssertionError(f"pick-count raise gave {k_raised}, want 16")
     b1("pick_raise", b1_inputs(100, 2100, DIM, 2, dev), k_raised, 2048)
     b1("k128_ragged_queries", b1_inputs(130, 4096, 128, 3, dev), 128, 2048)
+    # The int8 tensor-core loop at its edge shapes (INT8_TC_B1); then a
+    # filter that leaves 3 rows in tile 0, whose other slots are fillers,
+    # under both epilogues.
+    for b, n, d, k, tile in INT8_TC_B1:
+        b1("tensor_core", b1_inputs(b, n, d, 10 + k + d, dev), k, tile)
+    for k in (TOP_K, 64):
+        q8, qs, e8, es, mask = b1_inputs(130, 9000, DIM, 11 + k, dev)
+        mask[:2048] = False
+        mask[[5, 700, 2000]] = True
+        kv, ki = b1("filter_3_rows_in_tile_0", (q8, qs, e8, es, mask), k, 2048)
+        if not (bool((ki[:, 0, 3:] == -1).all()) and bool((kv[:, 0, 3:] == -1e30).all())):
+            raise AssertionError("B1: tile 0's empty slots are not (-1e30, -1)")
 
     # B2 reads B1's [b, tiles, k] output; the last twentieth of the tiles
     # hold only fillers.  10M rows at per-tile k = 12 (58,596 candidates)
@@ -457,6 +515,24 @@ def phase_super_kernels(dev, err: dict) -> None:
        128, 8192)
     b7("int8_super_tile_topk", "pick_raise", b1_inputs(100, 5000, DIM, 32, dev), k_raised,
        8192)
+    # The int8 tensor-core loop at its edge shapes; a filter that leaves 3
+    # rows in supertile 0 (both epilogues); all-tied rows.
+    for b, n, d, k, lbits in INT8_TC_B7I:
+        b7("int8_super_tile_topk", "tensor_core", b1_inputs(b, n, d, 50 + k + d, dev), k,
+           lbits)
+    for k in (16, 128):
+        q8, qs, e8, es, mask = b1_inputs(130, 9000, DIM, 51 + k, dev)
+        mask[:8192] = False
+        mask[[5, 700, 2000]] = True
+        kv, ki = b7("int8_super_tile_topk", "filter_3_rows_in_supertile_0",
+                    (q8, qs, e8, es, mask), k, 8192)
+        if not (bool((ki[:, 0, 3:] == -1).all()) and bool((kv[:, 0, 3:] == -1e30).all())):
+            raise AssertionError("B7i: supertile 0's empty slots are not (-1e30, -1)")
+    _, ki = b7("int8_super_tile_topk", "all_tied", b1_inputs(65, 9000, DIM, 52, dev, tied=True,
+                                                            mask_frac=0.0), 16, 8192)
+    want = torch.arange(2, device=dev)[:, None] * 8192 + torch.arange(16, device=dev)
+    if not torch.equal(ki, want.expand(65, 2, 16).to(torch.int32)):
+        raise AssertionError("B7i: all-tied rows did not give the lowest indices")
     for dtype in (torch.float32, torch.bfloat16):
         for lbits in (2048, 4096, 8192):
             b7("float_packed_super_tile_topk", "exact_dots",
@@ -910,7 +986,8 @@ def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3):
     tiles = vals.shape[1]
     log(f"[{label}] B1 at the path's shapes: bit-equal to its plain version")
     b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, k), reps=b1_reps)
-    b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1)
+    b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1,
+                          warmup=0)  # the bit check above warmed it
     b1_bytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel()
                 + mask.numel() + 8 * vals.numel())
     b1_bound = bound_ms(2.0 * b * n_bank * DIM, "int8", b1_bytes)
@@ -1458,7 +1535,7 @@ def path_d1(index, graph, queries, ref, dev, card, rec) -> None:
     del kv, ki
     ms = cuda_ms(lambda: tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K), reps=2)
     plain_ms = cuda_ms(lambda: tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K),
-                       reps=1)
+                       reps=1, warmup=0)
     tiles = -(-n_bank // 2048)
     nbytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel() + mask.numel()
               + 8 * D_BATCH * tiles * TOP_K)
@@ -1503,9 +1580,13 @@ def path_k(dev, card, rec) -> None:
     """The kernel sweep at the JAX sweep's shapes over its own bank: each
     row's launches, the JSON line, the attribution of B5's time, B8a's time
     per dot at 128- against 2048-row tiles; then B8a-c against their plain
-    versions at these shapes, with their plain times and bounds."""
+    versions at these shapes, with their plain times and bounds, and B1
+    (bit for bit) over the bank quantized on the card, beside
+    torch._int_mm of the same int8 operands."""
     from hcrag_tpu_torch.benchmarks import kernel_sweep as ks
     from hcrag_tpu_torch.ops import sweep_cuda as sw
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_bank, quantize_queries
 
     t0 = time.time()
     q, e = ks.sweep_data(dev)
@@ -1521,7 +1602,8 @@ def path_k(dev, card, rec) -> None:
     calls = res["shapes"]["steps"] + res["shapes"]["warmup"]
     want = {name: {name: calls} for name in SWEEP_KERNELS}
     want.update(matmul_only_acc_tile128={"matmul_only_acc": calls},
-                b5_alone={"float_packed_tile_topk": calls})
+                b5_alone={"float_packed_tile_topk": calls},
+                b1_alone={"int8_tile_topk": calls}, library_int8_matmul={})
     for row, counts in want.items():
         if res["launches"][row] != counts:
             raise AssertionError(f"K: row {row} launched {res['launches'][row]}, want {counts}")
@@ -1535,7 +1617,9 @@ def path_k(dev, card, rec) -> None:
         f"rate); B8a per dot at 2048- / 128-row tiles {a['acc_2048_over_128']:.3f}.  B5 "
         f"alone (tensor cores, selection in the epilogue) {b5:.3f} ms, "
         f"{a['b5_over_library']:.2f}x the cuBLAS product; B5 + B2 "
-        f"{res['full_two_level']:.3f} ms")
+        f"{res['full_two_level']:.3f} ms.  B1 alone (int8 tensor cores) {res['b1_alone']:.3f} "
+        f"ms, {a['b1_over_library']:.2f}x one torch._int_mm of the same int8 dots "
+        f"({res['library_int8_matmul']:.3f} ms)")
     if not 1 / 1.2 <= a["acc_2048_over_128"] <= 1.2:
         raise AssertionError("K: B8a's time per dot at 2048-row tiles is not within 20% of "
                              "its time at 128-row tiles: dots were dropped")
@@ -1553,9 +1637,28 @@ def path_k(dev, card, rec) -> None:
                          2 * qb.numel() + 2 * e.numel() + out_bytes[name])
         log(f"[K] B8 {name} B={b} N={n} tiles={tiles}: agrees with its plain version "
             f"(max |err| {err:.3g}); {res[name]:.3f} ms (plain {plain_ms:.3f} ms, "
-            f"torch.matmul of the same dots without the fold {res['library_matmul']:.3f} ms, "
+            f"dots alone, not the same function: torch.matmul {res['library_matmul']:.3f} ms, "
             f"bound {bound[0]:.3f} ms by {bound[1]}; {card})")
         rec.kernel(name, "K", res[name], plain_ms, bound, res["library_matmul"])
+
+    # B1 at the sweep's shapes over the bank quantized on the card, against
+    # its plain version, beside torch._int_mm of the same int8 operands
+    # (the dots alone, not the same function).
+    q8, qs = quantize_queries(q)
+    e8, es = quantize_bank(e, dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    args = (q8, qs, e8, es, mask, TOP_K)
+    vals, idxs = tc.int8_tile_topk(*args)
+    rec.err("int8_tile_topk", same_bits(vals, idxs, *tc.int8_tile_topk_plain(*args)))
+    plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(*args), reps=1, warmup=0)
+    bound = bound_ms(2.0 * b * n * DIM, "int8", q8.numel() + 4 * qs.numel() + e8.numel()
+                     + 4 * es.numel() + mask.numel() + 8 * vals.numel())
+    log(f"[K] B1 int8_tile_topk B={b} N={n} tiles={tiles} k={TOP_K}: bit-equal to its plain "
+        f"version; {res['b1_alone']:.3f} ms (plain {plain_ms:.3f} ms, dots alone, not the "
+        f"same function: torch._int_mm {res['library_int8_matmul']:.3f} ms, bound "
+        f"{bound[0]:.3f} ms by {bound[1]}; {card})")
+    rec.kernel("int8_tile_topk", "K", res["b1_alone"], plain_ms, bound,
+               res["library_int8_matmul"])
 
 
 def free(label: str) -> None:
@@ -1615,12 +1718,9 @@ def main() -> int:
     log(f"[build] {len(reports)} of {len(_build.KERNEL_SOURCES)} sources built in "
         f"{time.time() - t0:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "Compiling entry function" in line:  # the kernel and its template arguments
-                fn = line.split("'")[1]
-                log(f"[build] {name}: {fn[max(0, fn.find('_kernelI') - 20):][:64]}")
-            elif "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, props in _build.ptxas_report(rep):
+            log(f"[build] {name}: {fn}: {props}")
+    check_int8_sass(_build)
 
     # 3. kernels against their plain versions -------------------------------
     log("[kernels] kernel vs plain PyTorch version")

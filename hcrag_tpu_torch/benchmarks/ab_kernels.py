@@ -1,0 +1,182 @@
+"""Time the tensor-core top-k kernels of two source trees in one process.
+
+    python -m hcrag_tpu_torch.benchmarks.ab_kernels PARENT_DIR CHANGE_DIR
+
+Each directory holds a checkout of the repository (for example two
+`git archive` trees).  Their `hcrag_tpu_torch/csrc/int8_tile_topk.cu` and
+`float_tile_topk.cu` are built with this package's nvcc flags into its
+build directory and loaded side by side, and each kernel below is called
+from both libraries on the same tensors, in alternating turns (TURNS turns a
+tree, CALLS calls a turn, CUDA events): a comparison of two versions of a
+kernel that no other process or card can disturb.  The inputs are
+normalized random rows and queries made on the card from a seed, at the
+shapes of the `chip_smoke.py` paths that run each kernel:
+
+  B1   int8_tile_topk               path int8: B=8192 over 1,001,472 rows, k=10
+  B7i  int8_super_tile_topk         path S2: 8192-row supertiles, k_sub=16
+  B5   float_packed_tile_topk       path F2 (bf16 bank, k=10), path X (B=256, k=100)
+  B7f  float_packed_super_tile_topk path S1: 8192-row supertiles, k_sub=16
+
+It prints one JSON line: for each case both trees' ms per call by turn,
+their medians, and whether their outputs are bit-equal; for each kernel
+instantiation of the two libraries (`cuobjdump -sass`), its instruction
+count in each and how many instructions differ by opcode.  Needs a card
+and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import difflib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from hcrag_tpu_torch.device import resolve_device
+from hcrag_tpu_torch.ops import _build
+from hcrag_tpu_torch.ops.quantize import quantize_bank, quantize_queries
+from hcrag_tpu_torch.ops.topk_cuda import _SIGNATURES
+
+TURNS, CALLS = 8, 3
+N_ROWS, N_BANK, DIM = 1_000_000, 1_007_616, 384
+SOURCES = ("int8_tile_topk", "float_tile_topk")
+#: case -> (entry point, queries, per-tile k, tile or supertile rows)
+CASES = {
+    "int8 B1": ("int8_tile_topk", 8192, 10, 2048),
+    "S2 B7i": ("int8_super_tile_topk", 8192, 16, 8192),
+    "F2 B5": ("float_packed_tile_topk", 8192, 10, 2048),
+    "S1 B7f": ("float_packed_super_tile_topk", 8192, 16, 8192),
+    "X B5": ("float_packed_tile_topk", 256, 100, 2048),
+}
+
+
+def build(trees: Dict[str, Path]) -> Dict[str, Dict[str, Path]]:
+    """{tree: {source: library}}, every library built at once."""
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs, libs = [], {}
+    for tree, root in trees.items():
+        for src in SOURCES:
+            lib = out_dir / f"lib{src}-{tree}-{os.getpid()}.so"
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                   str(root / "hcrag_tpu_torch" / "csrc" / f"{src}.cu")]
+            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), src, tree))
+            libs.setdefault(tree, {})[src] = lib
+    for proc, src, tree in procs:
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {tree}'s {src}.cu:\n{out}")
+    return libs
+
+
+def compare_sass(a: Path, b: Path) -> Dict[str, Dict]:
+    """Per kernel of both libraries (`_build.sass_opcodes`; the tensor-core
+    kernel's Bf16 tag dropped, which a tree from before the int8 kernels
+    shared its template does not carry): instruction counts and how many
+    instructions differ by opcode."""
+    def by_label(lib):
+        return {k.replace(",Bf16", ""): v for k, v in _build.sass_opcodes(lib).items()}
+    ops_a, ops_b = by_label(a), by_label(b)
+    out = {}
+    for name in sorted(set(ops_a) & set(ops_b)):
+        sm = difflib.SequenceMatcher(None, ops_a[name], ops_b[name], autojunk=False)
+        same = sum(block.size for block in sm.get_matching_blocks())
+        out[name] = {"instructions": [len(ops_a[name]), len(ops_b[name])],
+                     "differing": max(len(ops_a[name]), len(ops_b[name])) - same}
+    return out
+
+
+def inputs(dev: torch.device, seed: int = 1) -> Dict[str, torch.Tensor]:
+    """The bank (bf16 and int8 with its scales), a row filter and queries
+    (bf16 and int8 with their scales), made on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    e = torch.nn.functional.normalize(torch.randn(N_BANK, DIM, device=dev, generator=g), dim=1)
+    q = torch.nn.functional.normalize(torch.randn(8192, DIM, device=dev, generator=g), dim=1)
+    e8, e_scale = quantize_bank(e, dev)
+    q8, q_scale = quantize_queries(q)
+    mask = torch.zeros(N_BANK, dtype=torch.bool, device=dev)
+    mask[:N_ROWS] = True
+    return dict(e=e.to(torch.bfloat16), q=q.to(torch.bfloat16), e8=e8, e_scale=e_scale,
+                q8=q8, q_scale=q_scale, mask=mask)
+
+
+def time_cases(libs: Dict[str, Dict[str, Path]], dev: torch.device) -> Dict[str, Dict]:
+    """Every case of CASES from both trees' libraries, in alternating turns."""
+    t = inputs(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fns = {}
+    for tree, by_src in libs.items():
+        loaded = {src: ctypes.CDLL(str(path)) for src, path in by_src.items()}
+        for name, *_ in CASES.values():
+            fn = getattr(loaded["int8_tile_topk" if "int8" in name else "float_tile_topk"], name)
+            fn.argtypes = _SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            fns[tree, name] = fn
+    out = {}
+    for case, (name, b, k, rows) in CASES.items():
+        tiles = -(-N_BANK // rows)
+        calls, outs = {}, {}
+        for tree in libs:
+            ov = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
+            oi = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
+            if "int8" in name:
+                args = (t["q8"][:b].data_ptr(), t["q_scale"][:b].data_ptr(), t["e8"].data_ptr(),
+                        t["e_scale"].data_ptr(), t["mask"].data_ptr(), ov.data_ptr(),
+                        oi.data_ptr(), b, N_BANK, DIM, k, rows, stream)
+            else:
+                args = (t["q"][:b].data_ptr(), t["e"].data_ptr(), t["mask"].data_ptr(),
+                        ov.data_ptr(), oi.data_ptr(), b, N_BANK, DIM, k, rows, 1, stream)
+            calls[tree] = (fns[tree, name], args)
+            outs[tree] = (ov, oi)
+        for fn, args in calls.values():
+            if fn(*args):
+                raise RuntimeError(f"{case}: launch failed")
+        torch.cuda.synchronize()
+        first, second = (outs[tree] for tree in libs)
+        equal = bool(torch.equal(first[1], second[1])
+                     and torch.equal(first[0].view(torch.int32), second[0].view(torch.int32)))
+        ms = {tree: [] for tree in libs}
+        order = list(libs)
+        for turn in range(TURNS):
+            for tree in (order if turn % 2 == 0 else order[::-1]):
+                fn, args = calls[tree]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(CALLS):
+                    fn(*args)
+                end.record()
+                torch.cuda.synchronize()
+                ms[tree].append(start.elapsed_time(end) / CALLS)
+        out[case] = {"ms": ms, "median_ms": {tree: sorted(v)[TURNS // 2] for tree, v in ms.items()},
+                     "outputs_bit_equal": equal}
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("parent", type=Path, help="checkout whose kernels come first")
+    parser.add_argument("change", type=Path, help="checkout to compare with it")
+    args = parser.parse_args(argv)
+    dev = resolve_device("cuda")
+    libs = build({"parent": args.parent, "change": args.change})
+    result = {
+        "device": torch.cuda.get_device_name(dev),
+        "cases": time_cases(libs, dev),
+        "sass": {src: compare_sass(libs["parent"][src], libs["change"][src])
+                 for src in SOURCES},
+    }
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

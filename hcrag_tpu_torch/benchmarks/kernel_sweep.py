@@ -29,7 +29,12 @@ It adds `library_matmul`, one `torch.matmul` of the bf16 queries with the
 bank: cuBLAS doing the same 2*B*N*D dots on the tensor cores, with no fold
 (a [B, N] bf16 product); `b5_alone`, B5 without B2; and
 `matmul_only_acc_tile128`, B8a over 128-row tiles, where every dot reaches
-the output.  B8a-c run the CUDA-core dot loop (`csrc/float_dot.cuh`) that
+the output.  The int8 yardstick: `b1_alone`, kernel B1 over the same bank
+and queries quantized on the device by the port's `quantize_bank` /
+`quantize_queries`, and `library_int8_matmul`, one `torch._int_mm` of
+the same int8 operands (the dots alone, a [B, N] int32 product);
+`b1_over_library` sets the two side by side, as `b5_over_library` does for
+B5.  B8a-c run the CUDA-core dot loop (`csrc/float_dot.cuh`) that
 B4 and the f32 banks keep; B5 over this bf16 bank runs on the tensor cores,
 with its selection in the loop's epilogue.  So `attribution` splits the
 CUDA-core loop alone: its dots (matmul_only_acc), the writes (wide - acc)
@@ -56,6 +61,7 @@ import torch
 from hcrag_tpu_torch.device import resolve_device
 from hcrag_tpu_torch.ops import sweep_cuda as sc
 from hcrag_tpu_torch.ops import topk_cuda as tc
+from hcrag_tpu_torch.ops.quantize import quantize_bank, quantize_queries
 from hcrag_tpu_torch.utils.timing import device_time
 
 #: The rows of the JAX sweep, under its keys.
@@ -73,7 +79,7 @@ def _wrappers() -> Dict[str, object]:
     return {"matmul_only_acc": sc.matmul_only_acc, "matmul_only_wide": sc.matmul_only_wide,
             "encode_level1": sc.encode_level1, "float_packed_tile_topk": tc.float_packed_tile_topk,
             "packed_candidate_merge": tc.packed_candidate_merge,
-            "float_tile_topk": tc.float_tile_topk}
+            "float_tile_topk": tc.float_tile_topk, "int8_tile_topk": tc.int8_tile_topk}
 
 
 def sweep_data(device: Union[str, torch.device], n: int = 1_000_000, d: int = 384,
@@ -110,6 +116,8 @@ def sweep(device: Union[str, torch.device], n: int = 1_000_000, d: int = 384, b:
     mask = torch.ones(n_pad, dtype=torch.bool, device=dev)
     k_tile = tc.tile_pick_count(top_k, n_pad, tile_n, MERGE_K)
     half = b // 2
+    q8, qs = quantize_queries(q)
+    e8, es = quantize_bank(e, dev)
 
     def full(packed: bool, qq: torch.Tensor = q):
         return tc.cosine_top_k(qq, e, mask, top_k, tile_n=tile_n, packed_select=packed,
@@ -126,6 +134,8 @@ def sweep(device: Union[str, torch.device], n: int = 1_000_000, d: int = 384, b:
         "library_matmul": lambda: torch.matmul(qb, e.T),
         "b5_alone": lambda: tc.float_packed_tile_topk(qb, e, mask, k_tile, tile_n),
         "matmul_only_acc_tile128": lambda: sc.matmul_only_acc(qb, e, 128),
+        "b1_alone": lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, top_k, tile_n),
+        "library_int8_matmul": lambda: torch._int_mm(q8, e8.T),
     }
     wrappers = _wrappers()
     out: Dict = {}
@@ -142,6 +152,7 @@ def sweep(device: Union[str, torch.device], n: int = 1_000_000, d: int = 384, b:
         "encode_level1_ms": out["encode_level1"] - acc,
         "library_speedup_over_dots": acc / out["library_matmul"],
         "b5_over_library": b5 / out["library_matmul"],
+        "b1_over_library": out["b1_alone"] / out["library_int8_matmul"],
         "acc_2048_over_128": acc / out["matmul_only_acc_tile128"],
     }
     out["launches"] = launches

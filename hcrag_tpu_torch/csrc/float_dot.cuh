@@ -2,7 +2,7 @@
 // and B7f over an f32 bank (float_tile_topk.cu) and B8 (kernel_sweep.cu)
 // share, so that the stage-attribution kernels of B8 time the dots of the
 // port's own f32 loop.  B5 and B7f over a bf16 bank run on the tensor
-// cores instead (bf16_mma.cuh).
+// cores instead (tc_tile_topk.cuh).
 //
 // A block takes QB = 64 queries.  `stage_queries` keeps them in shared memory
 // as f32, each row padded to d + 4 floats so that the threads' 16-byte loads

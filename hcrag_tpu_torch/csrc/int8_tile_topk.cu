@@ -25,10 +25,7 @@
 // so once a tile's valid rows are gone every further slot is
 // (-1e30, t * tile_n).  The order is B4's unique 64-bit word: the
 // order-preserving f32 bits in the high half, 0xFFFFFFFF - row_in_tile in the
-// low half.  Every partial sum of the integer dot stays below 127^2 * 384 <
-// 2^24, so fp32(dot) is exact and both kernels equal their plain PyTorch
-// versions bit for bit.  The rescale and shifts use __fmul_rn / __fadd_rn
-// (and the build passes --fmad=false): an FMA would change the bits.
+// low half.
 //
 // B7i, `int8_super_tile_topk`, replaces `_topk_tile_kernel_int8_super`
 // (topk_pallas.py), launched by `pallas_cosine_top_k_int8(super_tiles > 1)`:
@@ -43,36 +40,49 @@
 // shares its lane with T better ones; this kernel keeps the exact top k_sub.
 // It is B1's kernel with the supertile as its tile and this key policy, so
 // one block streams lbits rows, and each query writes k_sub candidates per
-// supertile instead of k per 2048-row tile.  Its work is B1's: at the
-// supertile paths (B = 8192 over 1,007,616 rows; B = 2048 over 10,002,432)
-// 6.3e12 and 1.57e13 int8 operations, 3.2 and 7.9 ms at the tensor-core
-// peak, far above the bytes it moves; bound by operations, like B1.
+// supertile instead of k per 2048-row tile.
+//
+// Bits.  The integer dots are exact in any order (int32 sums of int8
+// products), and fp32(dot) is exact while |dot| < 2^24: 127^2 * d < 2^24
+// holds for d <= 1040, so every kernel here refuses a larger d.  The rescale
+// and shifts use __fmul_rn / __fadd_rn (and the build passes --fmad=false):
+// an FMA would change the bits.  So all three kernels equal their plain
+// PyTorch versions bit for bit on every input.
 //
 // What bounds them on an H100: at the int8 path's shape (B = 8192 queries,
 // N = 1,001,472 rows, D = 384) B1 does 2*B*N*D = 6.3e12 int8 operations
 // (3.2 ms at the 1,979 TOP/s int8 tensor-core peak) and must move ~0.7 GB
 // (the 385 MB bank, the candidates it writes: ~0.2 ms at 3.35 TB/s); at the
-// 10M-row density paths (B = 2048, N = 10,000,384) B1 and B3 do 1.57e13
-// (7.9 ms) against a 3.84 GB bank (1.2 ms).  All are bound by operations.
-// This first version computes the dots with __dp4a on the CUDA cores, not
-// the tensor cores, and so sits far above that bound; wgmma and TMA are the
-// next step.
+// 10M-row density paths (B = 2048, N = 10,000,384) B1, B3 and B7i do 1.57e13
+// (7.9 ms) against a 3.84 GB bank (1.2 ms); B7i at S2 does B1's 6.3e12.  All
+// are bound by operations.
 //
-// Design: one block takes QB = 64 queries and one tile.  The query block
-// stays in shared memory; the tile streams through shared memory in
-// sub-tiles of RB = 64 rows.  256 threads each compute a 4 x 4 block of
-// dots with 16-byte shared loads and __dp4a, write the keys to shared
-// memory, and then each warp filters the keys of its 8 queries against the
-// current k-th best (a warp ballot) and inserts the few survivors into that
-// query's sorted list in shared memory (tile_select.cuh, shared with B4 and
-// B5).  The two kernels differ only in the key.  Blocks are ordered query
-// block fastest, so all query blocks of one tile run together and read the
-// tile from L2.
+// Design.  B1 and B7i run on the int8 tensor cores: the kernel of
+// tc_tile_topk.cuh, which B5 and B7f share over a bf16 bank, with wgmma
+// m64n64k32 (s32.s8.s8) from shared memory, the bank streamed by TMA into a
+// ring of 64-row x 128-column chunks, the query block resident, and the
+// selection in the epilogue (register lists for k <= 16, shared-memory
+// lists past that).  Each key is built from the int32 sum, the query's
+// scale (kept in registers) and the row's scale (loaded with its mask
+// byte).  What keeps them above their bound is the epilogue: per (query,
+// row) it does a B5's selection work while the int8 products take half the
+// tensor cores' time of bf16 ones (PERF.md).  B3e, with its 64-bit key,
+// keeps the first loop on the CUDA cores, the only use of __dp4a left: one
+// block takes QB = 64 queries and one tile; the query block stays in shared
+// memory; the tile streams through shared memory in sub-tiles of RB = 64
+// rows; 256 threads each compute a 4 x 4 block of dots with 16-byte shared
+// loads and __dp4a, write the keys to shared memory, and each warp filters
+// the keys of its 8 queries against the current k-th best (a warp ballot)
+// and inserts the few survivors into that query's sorted list in shared
+// memory (tile_select.cuh).  Blocks are ordered query block fastest in both
+// kernels, so all query blocks of one tile run together and read the tile
+// from L2.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "tc_tile_topk.cuh"
 #include "tile_select.cuh"
 
 namespace {
@@ -91,8 +101,8 @@ __device__ __forceinline__ float rescaled(int dot, float qs, float es) {
 }
 
 // B1's key: the packed (score + 2 | 2047 - lane) int32.  `vs` is 1 for a
-// row with mask set, 0 for a masked row, -1 for a row past n (whose scale
-// and bytes are zero: its key is negative like a masked row's).
+// row with mask set, 0 for a masked row or a row past n (whose scale and
+// bytes are zero: its key is negative like a masked row's).
 struct PackedKey {
   using Key = int;
   __device__ static Key filler() { return 0; }
@@ -161,17 +171,16 @@ size_t smem_bytes(int d, int k, size_t key_bytes) {
          sizeof(float) * (QB + RB) + sizeof(int) * RB;
 }
 
-template <typename K>
+// B3e's kernel: the dots with __dp4a on the CUDA cores, the selection by
+// merges into shared-memory lists.
 __global__ void __launch_bounds__(THREADS)
-int8_tile_topk_kernel(const int8_t* __restrict__ q,
-                      const float* __restrict__ q_scale,
-                      const int8_t* __restrict__ e,
-                      const float* __restrict__ e_scale,
-                      const uint8_t* __restrict__ mask,
-                      float* __restrict__ out_v, int* __restrict__ out_i,
-                      int b, int n, int d, int k, int tile_n, int tiles,
-                      const K policy) {
-  using Key = typename K::Key;
+int8_exact_tile_topk_kernel(const int8_t* __restrict__ q, const float* __restrict__ q_scale,
+                            const int8_t* __restrict__ e, const float* __restrict__ e_scale,
+                            const uint8_t* __restrict__ mask, float* __restrict__ out_v,
+                            int* __restrict__ out_i, int b, int n, int d, int k, int tile_n,
+                            int tiles) {
+  using K = ExactKey;
+  using Key = K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
   const int row_bytes = d + 16;  // padded rows spread the shared banks
   int8_t* q_rows = reinterpret_cast<int8_t*>(smem);
@@ -253,7 +262,7 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         const int qq = tq * 4 + i, r = tr + 16 * j;
         keys[qq * KEY_STRIDE + r] =
-            policy.make(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r], sub + r);
+            K::make(acc[i][j], qscale_s[qq], escale_s[r], valid_s[r], sub + r);
       }
     __syncthreads();
 
@@ -267,31 +276,28 @@ int8_tile_topk_kernel(const int8_t* __restrict__ q,
     const Key* L = lists + qq * k;
     for (int j = lane; j < k; j += 32) {
       const size_t o = ((size_t)gq * tiles + tile) * k + j;
-      policy.decode(L[j], tile_base, out_v + o, out_i + o);
+      K::decode(L[j], tile_base, out_v + o, out_i + o);
     }
   }
 }
 
-// `max_tile` is 2048 for B1 and B3e (11-bit lane field) and 8192 for B7i.
-template <typename K>
-int launch(const K policy, const void* q, const void* q_scale, const void* e,
-           const void* e_scale, const void* mask, void* out_v, void* out_i,
-           int b, int n, int d, int k, int tile_n, int max_tile, void* stream) {
-  if (b <= 0 || n <= 0 || d <= 0 || d % 16 != 0 || k < 1 || k > MAX_K ||
-      k > tile_n || tile_n % RB != 0 || tile_n > max_tile)
+int launch_exact(const void* q, const void* q_scale, const void* e, const void* e_scale,
+                 const void* mask, void* out_v, void* out_i, int b, int n, int d, int k,
+                 int tile_n, void* stream) {
+  if (b <= 0 || n <= 0 || !tc_tile::Int8::depth_ok(d) || k < 1 || k > MAX_K ||
+      k > tile_n || tile_n % RB != 0 || tile_n > 2048)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile_n - 1) / tile_n;
-  const size_t smem = smem_bytes(d, k, sizeof(typename K::Key));
+  const size_t smem = smem_bytes(d, k, sizeof(ExactKey::Key));
   if (tiles > 65535 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_tile_topk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      int8_exact_tile_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((b + QB - 1) / QB, tiles);
-  int8_tile_topk_kernel<K><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  int8_exact_tile_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int8_t*)q, (const float*)q_scale, (const int8_t*)e,
       (const float*)e_scale, (const uint8_t*)mask, (float*)out_v,
-      (int*)out_i, b, n, d, k, tile_n, tiles, policy);
+      (int*)out_i, b, n, d, k, tile_n, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -301,15 +307,18 @@ int launch(const K policy, const void* q, const void* q_scale, const void* e,
 //   q [b, d] int8, q_scale [b] f32, e [n, d] int8, e_scale [n] f32,
 //   mask [n] bool (one byte each), out_v [b, tiles, k] f32,
 //   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n) (B7i: the
-//   supertiles, ceil(n / lbits)).
+//   supertiles, ceil(n / lbits)); d a multiple of 16 up to 1040, rows on
+//   16-byte boundaries, and for B1 and B7i e_scale on an 8-byte and mask on
+//   a 4-byte boundary.
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int int8_tile_topk(const void* q, const void* q_scale,
                               const void* e, const void* e_scale,
                               const void* mask, void* out_v, void* out_i,
                               int b, int n, int d, int k, int tile_n,
                               void* stream) {
-  return launch(PackedKey{}, q, q_scale, e, e_scale, mask, out_v, out_i, b, n,
-                d, k, tile_n, 2048, stream);
+  return tc_tile::launch<tc_tile::Int8, PackedKey, false>(
+      PackedKey{},
+      {q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d, k, tile_n, 0, stream}, 2048);
 }
 
 extern "C" int int8_exact_tile_topk(const void* q, const void* q_scale,
@@ -317,8 +326,8 @@ extern "C" int int8_exact_tile_topk(const void* q, const void* q_scale,
                                     const void* mask, void* out_v,
                                     void* out_i, int b, int n, int d, int k,
                                     int tile_n, void* stream) {
-  return launch(ExactKey{}, q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d,
-                k, tile_n, 2048, stream);
+  return launch_exact(q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d, k, tile_n,
+                      stream);
 }
 
 extern "C" int int8_super_tile_topk(const void* q, const void* q_scale,
@@ -328,6 +337,7 @@ extern "C" int int8_super_tile_topk(const void* q, const void* q_scale,
                                     int lbits, void* stream) {
   if (lbits < 128 || (lbits & (lbits - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  return launch(SuperKey{lbits - 1}, q, q_scale, e, e_scale, mask, out_v,
-                out_i, b, n, d, k, lbits, 8192, stream);
+  return tc_tile::launch<tc_tile::Int8, SuperKey, false>(
+      SuperKey{lbits - 1},
+      {q, q_scale, e, e_scale, mask, out_v, out_i, b, n, d, k, lbits, 0, stream}, 8192);
 }

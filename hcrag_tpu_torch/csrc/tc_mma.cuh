@@ -1,17 +1,19 @@
-// bf16_mma.cuh — the bf16 tensor-core pieces of kernels B5 and B7f over a
-// bf16 bank (float_tile_topk.cu): the swizzled shared-memory layout, the
-// copies that fill it (cp.async for the query block, the Tensor Memory
-// Accelerator with mbarriers for the bank's rows), and the wgmma calls that
-// take their operands from it.
+// tc_mma.cuh — the tensor-core pieces of kernels B1 and B7i over an int8
+// bank and of B5 and B7f over a bf16 bank (tc_tile_topk.cuh): the swizzled
+// shared-memory layout, the copies that fill it (cp.async for the query
+// block, the Tensor Memory Accelerator with mbarriers for the bank's rows),
+// and the wgmma calls that take their operands from it.
 //
-// Layout: an operand is held as chunks of 64 columns; one chunk of R rows
-// takes R * 128 bytes, row r's eight 16-byte segments stored in the order
-// seg ^ (r & 7): the hardware's 128-byte swizzle, which both the TMA
-// (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma read and write.
+// Layout: an operand is held as chunks of 128 bytes of each row (64 bf16 or
+// 128 int8 columns); one chunk of R rows takes R * 128 bytes, row r's eight
+// 16-byte segments stored in the order seg ^ (r & 7): the hardware's
+// 128-byte swizzle, which both the TMA (CU_TENSOR_MAP_SWIZZLE_128B) and
+// wgmma read and write.
 //
 // The products of bf16 values are exact; how the tensor core adds them is
 // its own, so the sums agree with a chain of f32 FMAs only to rounding
 // (exactly where every partial sum is representable, as on dyadic inputs).
+// The int8 products add in int32, exactly in any order.
 
 #pragma once
 
@@ -19,11 +21,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace bf16_mma {
+namespace tc_mma {
 
-// Byte offset of (row, col) in a chunk; col a multiple of 8.
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return (uint32_t)(row * 128 + ((((col >> 3) ^ row) & 7) << 4));
+// Byte offset of 16-byte segment `seg` of row `row` in a chunk.
+__device__ __forceinline__ uint32_t swz(int row, int seg) {
+  return (uint32_t)(row * 128 + (((seg ^ row) & 7) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -46,8 +48,9 @@ __device__ __forceinline__ void cp_wait() {
 // --- wgmma: a warpgroup (4 warps, 128 threads) multiplies from shared
 // memory.  Both operands are K-major chunks in the layout above, which is
 // the hardware's 128-byte swizzle when a chunk starts on a 1024-byte
-// boundary: 8-row atoms of 1024 bytes (the stride), and a k16 step inside
-// the 64-column atom moves the start address by 32 bytes.
+// boundary: 8-row atoms of 1024 bytes (the stride), and a k-step of 32
+// bytes (16 bf16 or 32 int8 columns) inside the 128-byte atom moves the start
+// address by 32 bytes.
 
 // The matrix descriptor of a K-major, 128-byte-swizzled operand at `addr`.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
@@ -78,6 +81,25 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// The same product over int8: d[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T
+// with signed int8 operands and exact int32 sums, in the fragment layout
+// above.
+__device__ __forceinline__ void wgmma_64x64(int (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -93,6 +115,10 @@ __device__ __forceinline__ void wg_wait() {
 __device__ __forceinline__ void wg_fence_operands(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wg_fence_operands(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 // Order this thread's generic-proxy writes to shared memory (cp.async)
 // before the tensor cores' async-proxy reads.
@@ -135,4 +161,4 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int
       : "memory");
 }
 
-}  // namespace bf16_mma
+}  // namespace tc_mma

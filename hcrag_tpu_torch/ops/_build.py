@@ -15,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -105,3 +106,62 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+KERNEL_NAMES = ("Int8", "Bf16", "PackedKey", "SuperKey", "ExactKey", "__nv_bfloat16")
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name for a mangled kernel: its base name, then its
+    template's integers, known types and a set DOTS flag, as
+    tc_tile_topk_kernel<128,16,Int8,PackedKey>."""
+    base = None
+    for i in range(len(mangled)):  # names are length-prefixed
+        m = re.match(r"\d+", mangled[i:])
+        name = mangled[i + m.end():i + m.end() + int(m.group())] if m else ""
+        if name.endswith("_kernel"):
+            base = name
+            break
+    if base is None:
+        return mangled[:64]
+    tail = mangled.split(base, 1)[1]
+    tail = tail.split("Ev", 1)[0] if tail.startswith("I") else ""  # the template's arguments
+    args = re.findall(r"Li(\d+)E|Lb(1)E|(" + "|".join(KERNEL_NAMES) + ")", tail)
+    parts = [a or ("DOTS" if b else c.replace("__nv_bfloat16", "bf16")) for a, b, c in args]
+    return base + (f"<{','.join(parts)}>" if parts else "")
+
+
+def ptxas_report(report: str) -> List[Tuple[str, str]]:
+    """(kernel label, "N registers, stack and spill bytes") for each entry
+    function of a build's `-Xptxas -v` log."""
+    out, fn, frame = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = kernel_label(m.group(1))
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((fn, f"{regs} registers, {frame}"))
+            fn = None
+    return out
+
+
+def sass_opcodes(lib: Path) -> Dict[str, List[str]]:
+    """{kernel label: its machine instructions' opcodes in order} of a built
+    library, read with the toolkit's cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = kernel_label(m.group(1))
+            out[fn] = []
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and op:
+            out[fn].append(op.group(1))
+    return out

@@ -19,7 +19,7 @@ CPU and the card.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,20 +45,23 @@ def _residual_chunk(
     return _quantize_chunk(x - q.to(torch.float32) * scale[:, None])
 
 
-def _f32_rows(emb: np.ndarray, lo: int, hi: int) -> torch.Tensor:
-    """Rows lo:hi of a host bank as an f32 tensor (a bfloat16 bank widens
-    exactly)."""
+def _f32_rows(emb, lo: int, hi: int) -> torch.Tensor:
+    """Rows lo:hi of a bank (a host array, or a tensor on any device) as an
+    f32 tensor (a bfloat16 bank widens exactly)."""
+    if isinstance(emb, torch.Tensor):
+        return emb[lo:hi].to(torch.float32)
     return torch.from_numpy(np.ascontiguousarray(emb[lo:hi], dtype=np.float32))
 
 
 def quantize_bank(
-    emb: np.ndarray,
+    emb: Union[np.ndarray, torch.Tensor],
     device: torch.device,
     n_rows: Optional[int] = None,
     *,
     residual: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """Quantize a host bank [N, D] on `device`, one row chunk at a time:
+    """Quantize a bank [N, D] (a host array, or a tensor, as the kernel
+    sweep's bf16 bank on the card) on `device`, one row chunk at a time:
     (q8 [n_rows, D] int8, scale [n_rows] f32) and, with `residual`, the
     second level (r8, rscale) of `quantize_residual`.  Rows past N (up to
     `n_rows`, default N) are zero rows with zero scales, as quantizing zero

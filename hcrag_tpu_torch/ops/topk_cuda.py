@@ -51,6 +51,9 @@ PACKED_SUPER_MERGE_MIN_POOL = 1024  # the same for supertile pools
 _INT32_MIN = -(2**31)
 _INT64_MIN = -(2**63)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
+#: The widest int8 row the kernels take: |dot| <= 127^2 * d < 2^24 keeps
+#: fp32(dot) exact, and with it the bits of the scores.
+MAX_INT8_DEPTH = 1040
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -194,6 +197,31 @@ def _check_tiles(tile_n: int, k: int, super_rows: bool) -> None:
         raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
 
 
+def tc_smem_bytes(qb: int, d: int, k: int, elem_bytes: int = 2) -> int:
+    """Shared memory of the tensor-core kernel of B1 / B7i (int8,
+    elem_bytes 1) and B5 / B7f (bf16, elem_bytes 2), csrc/tc_tile_topk.cuh,
+    with qb queries per block: 1024 bytes of alignment, the query block in
+    whole 128-byte chunks of each row, four 64-row chunks with their two
+    mbarriers each, the key buffers, the lists and their counts."""
+    row = -(-d * elem_bytes // 128) * 128
+    return 1024 + qb * row + 4 * (64 * 128 + 16) + 4 * (qb * 64 + qb * k + qb)
+
+
+def tc_block_queries(d: int, k: int, elem_bytes: int = 2) -> int:
+    """The queries per block the tensor-core kernel takes: 128 where they
+    fit shared memory, else 64; 0 where neither fits."""
+    for qb in (128, 64):
+        if tc_smem_bytes(qb, d, k, elem_bytes) <= _SMEM_LIMIT:
+            return qb
+    return 0
+
+
+def _check_int8_depth(d: int) -> None:
+    if d > MAX_INT8_DEPTH:
+        raise ValueError(f"int8 rows of d={d} > {MAX_INT8_DEPTH}: 127^2 * d reaches 2^24, "
+                         "past which fp32(dot) is no longer exact")
+
+
 def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
                  super_rows=False):
     """Check the operands of kernel B1, B3e or B7i and launch it."""
@@ -210,11 +238,18 @@ def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
         raise ValueError(f"{name} needs at least one query and one row")
     if d % 16 or q8.data_ptr() % 16 or e8.data_ptr() % 16:
         raise ValueError("rows must be 16-byte multiples on 16-byte boundaries")
+    _check_int8_depth(d)
     _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
-    # Query and row blocks, key buffer and lists, scales and row flags
-    # (csrc/int8_tile_topk.cu).
-    smem = 128 * (d + 16) + key_bytes * 64 * (68 + k) + 4 * (64 + 64 + 64)
+    if key_bytes == 4:  # B1 and B7i: the tensor-core kernel
+        if e_scale.data_ptr() % 8 or mask.data_ptr() % 4:
+            raise ValueError(f"{name}: e_scale must lie on an 8-byte boundary and mask "
+                             "on a 4-byte one")
+        smem = tc_smem_bytes(tc_block_queries(d, k, 1) or 64, d, k, 1)
+    else:
+        # B3e: query and row blocks, key buffer and lists, scales and row
+        # flags (csrc/int8_tile_topk.cu's CUDA-core kernel).
+        smem = 128 * (d + 16) + key_bytes * 64 * (68 + k) + 4 * (64 + 64 + 64)
     if smem > _SMEM_LIMIT or tiles > 65535:
         raise ValueError(
             f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
@@ -244,6 +279,7 @@ def int8_tile_topk(
     """Kernel B1 for CUDA tensors, its plain version for CPU tensors (see
     `int8_tile_topk_plain` for the contract)."""
     if q8.device.type == "cpu":
+        _check_int8_depth(q8.shape[1])
         return int8_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, tile_n)
     out = _int8_launch("int8_tile_topk", 4, q8, q_scale, e8, e_scale, mask, k, tile_n)
     int8_tile_topk.launches += 1
@@ -286,6 +322,7 @@ def int8_exact_tile_topk(
     """Kernel B3e for CUDA tensors, its plain version for CPU tensors (see
     `int8_exact_tile_topk_plain` for the contract)."""
     if q8.device.type == "cpu":
+        _check_int8_depth(q8.shape[1])
         return int8_exact_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, tile_n)
     out = _int8_launch(
         "int8_exact_tile_topk", 8, q8, q_scale, e8, e_scale, mask, k, tile_n
@@ -462,14 +499,6 @@ def float_packed_tile_topk_plain(
                                e.shape[0], k, tile_n, LANE_BITS, q.device)
 
 
-def tc_smem_bytes(qb: int, d: int, k: int) -> int:
-    """Shared memory of the tensor-core kernel of B5 / B7f over a bf16 bank
-    with qb queries per block: 1024 bytes of alignment, the query block,
-    four 64 x 64 chunks of rows with their two mbarriers each, the key
-    buffers, the lists and their counts."""
-    return 1024 + 2 * qb * d + 4 * (64 * 128 + 16) + 4 * (qb * 64 + qb * k + qb)
-
-
 def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
     """Check the operands of kernel B4, B5 or B7f and launch it."""
     _require_cuda(q, "q")
@@ -488,7 +517,7 @@ def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
     _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
     if key_bytes == 4 and e.dtype == torch.bfloat16:
-        smem = min(tc_smem_bytes(qb, d, k) for qb in (64, 128))
+        smem = tc_smem_bytes(tc_block_queries(d, k) or 64, d, k)
     else:
         # Query block, staged rows, key buffer and lists
         # (csrc/float_tile_topk.cu's CUDA-core kernel).
@@ -613,6 +642,7 @@ def int8_super_tile_topk(
     """Kernel B7i for CUDA tensors, its plain version for CPU tensors (see
     `int8_super_tile_topk_plain` for the contract)."""
     if q8.device.type == "cpu":
+        _check_int8_depth(q8.shape[1])
         return int8_super_tile_topk_plain(q8, q_scale, e8, e_scale, mask, k, lbits)
     out = _int8_launch("int8_super_tile_topk", 4, q8, q_scale, e8, e_scale, mask, k,
                        lbits, super_rows=True)

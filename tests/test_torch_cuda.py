@@ -40,10 +40,27 @@ def _b1_inputs(b, n, d, seed, dev, tied=False):
     return q8, qs, torch.from_numpy(e8).to(dev), torch.from_numpy(es).to(dev), mask
 
 
+# B1 and B7i run on the int8 tensor cores, and int32 sums are exact in any
+# order, so both equal their plain versions bit for bit on random inputs.
+# Past the first cases, the loop's edge shapes: k 1-16 take the register
+# lists, 17-128 the shared-memory lists; d of 16 and 48 leave most of a
+# 128-column chunk to the zero fill; tiles of 64-2048 rows and supertiles
+# of 128 and 8192; batches of 1 to 8192 (ragged query blocks); ragged last
+# tiles; d = 768 at k = 128 is the widest block that still takes 128
+# queries.
+INT8_TC_TILE = [(1, 3000, 16, 1, 64), (65, 9000, 48, 10, 1024), (130, 4500, 128, 16, 2048),
+                (130, 5000, 384, 17, 2048), (65, 3000, 768, 64, 1024),
+                (8192, 2100, 384, 10, 2048), (70, 4100, 128, 128, 2048),
+                (130, 9000, 16, 64, 64), (130, 5000, 768, 128, 2048)]
+INT8_TC_SUPER = [(65, 5000, 48, 16, 128), (130, 20_000, 384, 10, 8192),
+                 (1, 9000, 768, 128, 8192), (8192, 9000, 128, 17, 8192),
+                 (130, 3000, 16, 64, 128), (65, 20_000, 384, 1, 8192)]
+
+
 @pytest.mark.parametrize(
     "b,n,d,k,tile",
     [(5, 5000, 128, 10, 1024), (70, 9000, 384, 16, 2048),
-     (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)],
+     (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)] + INT8_TC_TILE,
 )
 def test_int8_tile_topk_equals_plain(cuda, b, n, d, k, tile):
     args = _b1_inputs(b, n, d, seed=b + k, dev=cuda)
@@ -159,7 +176,7 @@ SUPER_CASES = [(70, 9000, 384, 16, 2048), (64, 20_000, 128, 16, 4096),
                (130, 20_000, 384, 128, 8192), (5, 3000, 128, 32, 8192)]
 
 
-@pytest.mark.parametrize("b,n,d,k,lbits", SUPER_CASES)
+@pytest.mark.parametrize("b,n,d,k,lbits", SUPER_CASES + INT8_TC_SUPER)
 def test_int8_super_tile_topk_equals_plain(cuda, b, n, d, k, lbits):
     args = _b1_inputs(b, n, d, seed=b + k + 2, dev=cuda)
     kv, ki = topk_cuda.int8_super_tile_topk(*args, k, lbits)
@@ -563,6 +580,45 @@ def test_tensor_core_dots_within_the_band(cuda):
     assert err <= TC_DOT_ERROR
     q, e, _ = _dyadic_inputs(64, 3000, 128, 4, cuda, torch.bfloat16)
     assert torch.equal(topk_cuda.bf16_tc_dots(q, e), (q.double() @ e.double().T).float())
+
+
+def _int8_tc(kernel, args, k, rows):
+    """(kernel, plain) outputs of B1 or B7i."""
+    if kernel == "b1":
+        return (topk_cuda.int8_tile_topk(*args, k, tile_n=rows),
+                topk_cuda.int8_tile_topk_plain(*args, k, tile_n=rows))
+    return (topk_cuda.int8_super_tile_topk(*args, k, rows),
+            topk_cuda.int8_super_tile_topk_plain(*args, k, rows))
+
+
+def _bit_equal(out, plain):
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], plain[1])
+    assert torch.equal(out[0].view(torch.int32), plain[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("kernel,k,rows", [("b1", 10, 2048), ("b1", 64, 1024),
+                                           ("b7i", 16, 8192), ("b7i", 128, 8192)])
+def test_tensor_core_b1_b7i_filter_and_ties(cuda, kernel, k, rows):
+    """A filter that leaves 3 rows in the first tile: its other slots are
+    (-1e30, -1) fillers; all-tied rows: every tile gives its lowest rows.
+    Both bit-equal to the plain version."""
+    q8, qs, e8, es, mask = _b1_inputs(130, 9000, 384, seed=k + rows, dev=cuda)
+    mask[:rows] = False
+    mask[[5, 700, 1000]] = True
+    out, plain = _int8_tc(kernel, (q8, qs, e8, es, mask), k, rows)
+    _bit_equal(out, plain)
+    got = torch.sort(out[1][:, 0, :3], dim=1).values
+    assert torch.equal(got, torch.tensor([5, 700, 1000], device=cuda, dtype=torch.int32)
+                       .expand(130, 3))
+    assert bool((out[1][:, 0, 3:] == -1).all()) and bool((out[0][:, 0, 3:] == -1e30).all())
+    args = _b1_inputs(65, 9000, 128, seed=k, dev=cuda, tied=True)
+    args = args[:4] + (torch.ones_like(args[4]),)
+    out, plain = _int8_tc(kernel, args, k, rows)
+    _bit_equal(out, plain)
+    tiles = -(-9000 // rows)
+    want = torch.arange(tiles, device=cuda)[:, None] * rows + torch.arange(k, device=cuda)
+    assert torch.equal(out[1], want.expand(65, tiles, k).to(torch.int32))
 
 
 @pytest.mark.parametrize("mode", ["f32", "rescore", "int8"])

@@ -196,15 +196,63 @@ def test_sweep_on_cpu_runs_every_row_and_launches_no_kernel():
     before = {k: w.launches for k, w in wrappers.items()}
     out = port_sweep.sweep("cpu", n=4096, d=64, b=8, tile_n=2048, steps=1)
     assert {k: w.launches for k, w in wrappers.items()} == before
-    rows = set(port_sweep.JAX_ROWS) | {"library_matmul", "b5_alone", "matmul_only_acc_tile128"}
+    rows = set(port_sweep.JAX_ROWS) | {"library_matmul", "b5_alone", "matmul_only_acc_tile128",
+                                       "b1_alone", "library_int8_matmul"}
     assert rows <= set(out)
     assert all(out[k] > 0 for k in rows)
     assert all(not c for c in out["launches"].values())
     assert set(out["attribution"]) >= {"dots_ms", "writes_ms", "encode_level1_ms",
-                                       "b5_over_library", "acc_2048_over_128"}
+                                       "b5_over_library", "b1_over_library",
+                                       "acc_2048_over_128"}
     assert "level2_ms" not in out["attribution"]  # B5 and B8 run different loops
     assert out["device"] == "cpu" and out["shapes"]["n"] == 4096
     json.dumps(out)
+
+
+def test_quantize_bank_takes_the_sweeps_tensor_bank():
+    """`b1_alone` quantizes the sweep's bf16 bank where it lies: byte-equal
+    to quantizing the same rows from the host (the JAX package's
+    `quantize_rows`)."""
+    from hcrag_tpu.ops.quantize import quantize_rows as jax_quantize_rows
+    from hcrag_tpu_torch.ops.quantize import ROW_CHUNK, quantize_bank
+
+    _, e = port_sweep.sweep_data("cpu", n=ROW_CHUNK + 300, d=64, b=4, tile_n=2048)
+    e8, es = quantize_bank(e, torch.device("cpu"))
+    w8, ws = jax_quantize_rows(e.float().numpy())
+    np.testing.assert_array_equal(e8.numpy(), np.asarray(w8))
+    np.testing.assert_array_equal(es.numpy(), np.asarray(ws))
+
+
+def test_kernel_labels_and_ptxas_report_read_nvcc_output():
+    """The build report names each kernel by its template's arguments and
+    gives its registers, stack and spill bytes (the lines `chip_smoke.py`
+    prints), from nvcc's `-Xptxas -v` log."""
+    from hcrag_tpu_torch.ops import _build
+
+    tc = ("_ZN7tc_tile19tc_tile_topk_kernelILi128ELi16ENS_4Int8EN50_GLOBAL__N__dce003d3_17_"
+          "int8_tile_topk_cu_64d1a18c9PackedKeyELb0EEEv14CUtensorMap_stPKhPKfS8_S6_PfPiiiii")
+    dots = ("_ZN7tc_tile19tc_tile_topk_kernelILi64ELi0ENS_4Bf16EN51_GLOBAL__N__155bee95_18_"
+            "float_tile_topk_cu_13a1ec919PackedKeyELb1EEEv14CUtensorMap_stPKhPKfS8_S6_PfPiiii")
+    exact = ("_ZN50_GLOBAL__N__dce003d3_17_int8_tile_topk_cu_64d1a18c27int8_exact_tile_topk_"
+             "kernelEPKaPKfS1_S3_PKhPfPiiiiiii")
+    assert _build.kernel_label(tc) == "tc_tile_topk_kernel<128,16,Int8,PackedKey>"
+    assert _build.kernel_label(dots) == "tc_tile_topk_kernel<64,0,Bf16,PackedKey,DOTS>"
+    assert _build.kernel_label(exact) == "int8_exact_tile_topk_kernel"
+    log = (f"ptxas info    : Compiling entry function '{tc}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {tc}\n"
+           "    128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 165 registers, used 2 barriers, 128 bytes cumulative stack\n")
+    assert _build.ptxas_report(log) == [
+        ("tc_tile_topk_kernel<128,16,Int8,PackedKey>",
+         "165 registers, 128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+
+
+def test_ab_kernels_needs_a_card():
+    from hcrag_tpu_torch.benchmarks import ab_kernels
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ab_kernels.main([".", "."])
 
 
 def test_sweep_main_refuses_a_missing_card_and_runs_on_cpu(capsys):
