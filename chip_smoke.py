@@ -9,9 +9,9 @@ last line:
   1. card    — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every kernel source from csrc/, all in parallel
                (sm_90a), and prints each kernel's registers, stack and spill
-               bytes (ptxas); the int8 library's machine code (cuobjdump)
-               must show the int8 wgmma in every tensor-core kernel of B1
-               and B7i and __dp4a only in B3e's;
+               bytes (ptxas), none of which may spill; the int8 library's
+               machine code (cuobjdump) must show the int8 wgmma in every
+               kernel of B1, B3e and B7i, and __dp4a in none;
   3. kernels — every kernel against its plain PyTorch version on the card:
                B1, B3e, B7i and B2 bit for bit (b=512 at D=384 over 20 tiles
                with a ragged last tile and masked rows, the 4890-candidate
@@ -23,8 +23,12 @@ last line:
                one block's shared memory (10M rows at per-tile k = 12, and
                k = 128), the per-tile pick-count raise, B3e under filters
                that leave fewer than k rows in a tile or fewer than top_k
-               in the bank); B4 (f32 and bf16 banks) and B5 at the same
-               shapes under the rules of `hcrag_tpu_torch/testing.py`, and
+               in the bank, and on the int8 tensor cores at B1's edge
+               shapes, d = 1040 and k 11-17, each kind of its lists); B4
+               (f32 and bf16 banks) and B5 at the same shapes under the
+               rules of `hcrag_tpu_torch/testing.py`, B4 on its CUDA-core
+               loop's edge shapes (d 64 and 1024, tiles of 64 and 192 rows,
+               k 1-128) by that rule and bit for bit on exact dots, and
                exactly on a zero query, on one-hot queries under a filter
                that leaves fewer than k rows in a tile, and in the
                pick-count raise case; B5 on the tensor cores bit for bit on
@@ -99,7 +103,8 @@ prints the sweep's JSON line, the split of the CUDA-core dot loop (B8a-c)
 and B5 on the tensor cores beside the cuBLAS product, checks that B8a's
 time per dot is the same at 128- and 2048-row tiles (no dot dropped), and
 holds B8a-c against their plain versions at the sweep's shapes (B8a/B8b
-within 1e-5, B8c by `testing.check_level1`) and B1 bit for bit.  The
+within 1e-5, B8c by `testing.check_level1`), B4 alone by
+`testing.check_exact_topk` and B1 bit for bit.  The
 kernel phase also holds B8a-c bit for bit on exact dots (d=384; tiles of
 2048, 1024 and 128 rows; b=512 and a ragged 200; negative keys in B8c).
 
@@ -200,25 +205,29 @@ def b1_inputs(b, n, d, seed, dev, tied=False, mask_frac=0.1):
 
 
 def check_int8_sass(build) -> None:
-    """The built int8 library's machine code: every tensor-core kernel of B1
-    and B7i (Int8, PackedKey / SuperKey) issues the int8 wgmma (IGMMA, from
-    wgmma.mma_async ... s32.s8.s8) and no __dp4a (IDP.4A); __dp4a is left
-    only in B3e's kernel.  Raises otherwise."""
+    """The built int8 library's machine code: every kernel of B1, B7i and
+    B3e (the tensor-core template over Int8 with PackedKey, SuperKey and
+    ExactKey, four instantiations each) issues the int8 wgmma (IGMMA, from
+    wgmma.mma_async ... s32.s8.s8), and no kernel issues __dp4a (IDP.4A).
+    Raises otherwise."""
     ops = build.sass_opcodes(build.library_path("int8_tile_topk"))
-    tc_fns = [f for f in ops if f.startswith("tc_tile_topk_kernel") and "Int8" in f]
-    if len(tc_fns) != 8:
-        raise AssertionError(f"expected 8 int8 tensor-core kernels, found {sorted(ops)}")
+    for key in ("PackedKey", "SuperKey", "ExactKey"):
+        fns = [f for f in ops if f.startswith("tc_tile_topk_kernel") and f"Int8,{key}" in f]
+        if len(fns) != 4:
+            raise AssertionError(f"expected 4 int8 tensor-core kernels of {key}, found "
+                                 f"{sorted(ops)}")
+    if len(ops) != 12:
+        raise AssertionError(f"expected the 12 tensor-core kernels alone, found {sorted(ops)}")
     for f in sorted(ops):
         igmma = sum(op.startswith("IGMMA") for op in ops[f])
         idp = sum(op.startswith("IDP") for op in ops[f])
         log(f"[build] int8_tile_topk SASS: {f}: {igmma} IGMMA (int8 wgmma), {idp} IDP.4A "
             "(__dp4a)")
-        if f in tc_fns and (igmma < 1 or idp):
+        if igmma < 1 or idp:
             raise AssertionError(f"{f}: not on the int8 tensor cores alone")
-        if f not in tc_fns and idp and not f.startswith("int8_exact_tile_topk_kernel"):
-            raise AssertionError(f"{f}: __dp4a outside B3e")
-    log("[build] B1 and B7i (int8_tile_topk, int8_super_tile_topk) run wgmma s32.s8.s8 "
-        "in every instantiation; __dp4a is left only in B3e's kernel")
+    log("[build] B1, B7i and B3e (int8_tile_topk, int8_super_tile_topk, "
+        "int8_exact_tile_topk) run wgmma s32.s8.s8 in every instantiation; no kernel "
+        "issues __dp4a")
 
 
 # (b, n, d, k, tile_n) of B1 and (b, n, d, k_sub, lbits) of B7i on the int8
@@ -337,6 +346,16 @@ def phase_kernels(dev) -> dict:
 
     b3e("bench", b1_inputs(512, 40_000, DIM, 6, dev), TOP_K, 2048)
     b3e("k128_ragged_queries", b1_inputs(130, 4096, 128, 7, dev), 128, 2048)
+    # On the int8 tensor cores with its 64-bit key: B1's edge shapes, the
+    # widest rows, and k 11, 16 and 17 (10-key register lists in 128-query
+    # blocks up to k = 10, 16-key ones in 64-query blocks to 16, shared
+    # lists past that).
+    for b, n, d, k, tile in INT8_TC_B1 + ((65, 3000, 1040, 10, 2048),
+                                          (130, 2500, 1040, 128, 2048),
+                                          (2048, 2100, DIM, 11, 2048),
+                                          (130, 5000, DIM, 16, 1024),
+                                          (130, 5000, DIM, 17, 2048)):
+        b3e("tensor_core", b1_inputs(b, n, d, 12 + k + d, dev), k, tile)
     q8, qs, e8, es, mask = b1_inputs(64, 40_000, DIM, 8, dev)
     mask[:2048] = False
     mask[[5, 700, 2000]] = True
@@ -434,6 +453,17 @@ def phase_float_kernels(dev, err: dict) -> None:
         raise AssertionError(f"pick-count raise gave {k_raised}, want 16")
     b5("pick_raise", float_inputs(100, 2100, DIM, 25, dev, torch.bfloat16), k_raised)
     b4("k128_ragged_queries", float_inputs(130, 4096, 128, 26, dev, torch.float32), 128)
+    # B4's CUDA-core loop at its edge shapes (d of 64 and 1024, tiles of 64
+    # and 192 rows, k 1 to 128), by the rule above and bit for bit on exact
+    # dots, over both banks.
+    for b, n, d, k, tile in ((1, 3000, 64, 1, 64), (129, 3000, 1024, 17, 512),
+                             (130, 2500, 1024, 128, 2048), (63, 1000, 768, 1, 192),
+                             (1024, 2100, DIM, TOP_K, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            b4("core_loop", float_inputs(b, n, d, 30 + k + d, dev, dtype), k, tile)
+            exact(f"B4 exact_dots b={b} n={n} d={d} k={k} tile={tile} {str(dtype)[6:]}",
+                  *run("float_tile_topk", dyadic_inputs(b, n, d, 31 + k + d, dev, dtype),
+                       k, tile))
     b5("k128_ragged_queries", float_inputs(130, 4096, 128, 27, dev, torch.bfloat16), 128)
 
     # B5 over a bf16 bank runs on the tensor cores: bit for bit on exact
@@ -846,11 +876,13 @@ class Record:
         self.rows = {name: {} for name in KERNELS}  # name -> path -> numbers
         self.launches = {}  # path -> name -> count
 
-    def kernel(self, name, path, ms, plain_ms, bound, library_ms=None):
+    def kernel(self, name, path, ms, plain_ms, bound, library_ms=None, dots_alone_ms=None):
         bound_ms_, by = bound
         self.rows[name][path] = dict(
             launches=self.launches[path][name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms_, bound_by=by, library_ms=library_ms)
+        if dots_alone_ms is not None:  # a yardstick: the dots alone, not the same function
+            self.rows[name][path]["dots_alone_ms"] = dots_alone_ms
 
     def err(self, name, e):
         self.max_err[name] = max(self.max_err[name], e)
@@ -1323,13 +1355,18 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
         f"(max |err| {err:.3g}, {moved} indices at near-ties)")
     b4_ms = cuda_ms(lambda: tc.float_tile_topk(dq, e, mask, TOP_K), reps=3)
     b4_plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(dq, e, mask, TOP_K), reps=1)
+    # The yardstick: the same f32 dots alone, one [B, N] product in full f32
+    # (TF32 is off), not the same function.
+    dots_ms = cuda_ms(lambda: torch.matmul(dq, e.T), reps=3)
     tiles = -(-n_bank // 2048)
     b4_bytes = 4 * dq.numel() + 4 * e.numel() + mask.numel() + 8 * F1_BATCH * tiles * TOP_K
     b4_bound = bound_ms(2.0 * F1_BATCH * n_bank * DIM, "f32", b4_bytes)
     log(f"[F1] B4 float_tile_topk B={F1_BATCH} N={n_bank} tiles={tiles} f32: "
         f"{b4_ms:.3f} ms (plain {b4_plain_ms:.3f} ms, bound {b4_bound[0]:.3f} ms by "
-        f"{b4_bound[1]}; {card})")
-    rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound)
+        f"{b4_bound[1]}; dots alone, not the same function: torch.matmul in f32 "
+        f"{dots_ms:.3f} ms; launches on the path {rec.launches['F1']['float_tile_topk']}; "
+        f"{card})")
+    rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
 
 
 def path_d3(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1536,14 +1573,25 @@ def path_d1(index, graph, queries, ref, dev, card, rec) -> None:
     ms = cuda_ms(lambda: tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K), reps=2)
     plain_ms = cuda_ms(lambda: tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K),
                        reps=1, warmup=0)
+    # The yardstick: the same int8 dots alone, torch._int_mm in 1M-row
+    # chunks (the [B, N] int32 product would not fit), not the same function.
+    chunk = 1_000_000
+
+    def int8_dots():  # each chunk's product is dropped before the next
+        for lo in range(0, n_bank, chunk):
+            torch._int_mm(q8, e8[lo:lo + chunk].T)
+
+    dots_ms = cuda_ms(int8_dots, reps=1)
     tiles = -(-n_bank // 2048)
     nbytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel() + mask.numel()
               + 8 * D_BATCH * tiles * TOP_K)
     bound = bound_ms(2.0 * D_BATCH * n_bank * DIM, "int8", nbytes)
     log(f"[D1x] B3e int8_exact_tile_topk B={D_BATCH} N={n_bank} tiles={tiles}: bit-equal "
         f"to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{bound[0]:.3f} ms by {bound[1]}; {card})")
-    rec.kernel("int8_exact_tile_topk", "D1x", ms, plain_ms, bound)
+        f"{bound[0]:.3f} ms by {bound[1]}; dots alone, not the same function: "
+        f"torch._int_mm in {chunk}-row chunks {dots_ms:.3f} ms; launches on the path "
+        f"{rec.launches['D1x']['int8_exact_tile_topk']}; {card})")
+    rec.kernel("int8_exact_tile_topk", "D1x", ms, plain_ms, bound, dots_alone_ms=dots_ms)
 
 
 def path_d2(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1580,9 +1628,10 @@ def path_k(dev, card, rec) -> None:
     """The kernel sweep at the JAX sweep's shapes over its own bank: each
     row's launches, the JSON line, the attribution of B5's time, B8a's time
     per dot at 128- against 2048-row tiles; then B8a-c against their plain
-    versions at these shapes, with their plain times and bounds, and B1
-    (bit for bit) over the bank quantized on the card, beside
-    torch._int_mm of the same int8 operands."""
+    versions at these shapes, with their plain times and bounds, B4 alone
+    over the bf16 bank (`testing.check_exact_topk`), and B1 (bit for bit)
+    over the bank quantized on the card, beside torch._int_mm of the same
+    int8 operands."""
     from hcrag_tpu_torch.benchmarks import kernel_sweep as ks
     from hcrag_tpu_torch.ops import sweep_cuda as sw
     from hcrag_tpu_torch.ops import topk_cuda as tc
@@ -1641,12 +1690,31 @@ def path_k(dev, card, rec) -> None:
             f"bound {bound[0]:.3f} ms by {bound[1]}; {card})")
         rec.kernel(name, "K", res[name], plain_ms, bound, res["library_matmul"])
 
+    # B4 alone over the sweep's bf16 bank (f32 sums on the CUDA cores, the
+    # loop that B8a-c split), against its plain version.
+    from hcrag_tpu_torch.testing import check_exact_topk
+
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    kv, ki = tc.float_tile_topk(qb, e, mask, TOP_K)
+    err, moved = check_exact_topk(kv, ki, *tc.float_tile_topk_plain(qb, e, mask, TOP_K),
+                                  qb, e, mask)
+    rec.err("float_tile_topk", err)
+    del kv, ki
+    b4_ms = cuda_ms(lambda: tc.float_tile_topk(qb, e, mask, TOP_K), reps=3)
+    plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(qb, e, mask, TOP_K), reps=1)
+    bound = bound_ms(2.0 * b * n * DIM, "f32", 2 * qb.numel() + 2 * e.numel() + n
+                     + 8 * b * tiles * TOP_K)
+    log(f"[K] B4 float_tile_topk B={b} N={n} tiles={tiles} bf16 bank: agrees with its plain "
+        f"version (max |err| {err:.3g}, {moved} indices at near-ties); {b4_ms:.3f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]}; the CUDA-core "
+        f"loop's dots alone, B8a, {res['matmul_only_acc']:.3f} ms; {card})")
+    rec.kernel("float_tile_topk", "K", b4_ms, plain_ms, bound)
+
     # B1 at the sweep's shapes over the bank quantized on the card, against
     # its plain version, beside torch._int_mm of the same int8 operands
     # (the dots alone, not the same function).
     q8, qs = quantize_queries(q)
     e8, es = quantize_bank(e, dev)
-    mask = torch.ones(n, dtype=torch.bool, device=dev)
     args = (q8, qs, e8, es, mask, TOP_K)
     vals, idxs = tc.int8_tile_topk(*args)
     rec.err("int8_tile_topk", same_bits(vals, idxs, *tc.int8_tile_topk_plain(*args)))
@@ -1720,6 +1788,8 @@ def main() -> int:
     for name, rep in reports.items():
         for fn, props in _build.ptxas_report(rep):
             log(f"[build] {name}: {fn}: {props}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in props:
+                raise AssertionError(f"{name}: {fn} spills registers: {props}")
     check_int8_sass(_build)
 
     # 3. kernels against their plain versions -------------------------------

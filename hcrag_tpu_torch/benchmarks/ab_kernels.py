@@ -1,4 +1,4 @@
-"""Time the tensor-core top-k kernels of two source trees in one process.
+"""Time the per-tile top-k kernels of two source trees in one process.
 
     python -m hcrag_tpu_torch.benchmarks.ab_kernels PARENT_DIR CHANGE_DIR
 
@@ -13,9 +13,12 @@ normalized random rows and queries made on the card from a seed, at the
 shapes of the `chip_smoke.py` paths that run each kernel:
 
   B1   int8_tile_topk               path int8: B=8192 over 1,001,472 rows, k=10
+  B3e  int8_exact_tile_topk         the int8 path's bank: B=2048, k=10
   B7i  int8_super_tile_topk         path S2: 8192-row supertiles, k_sub=16
   B5   float_packed_tile_topk       path F2 (bf16 bank, k=10), path X (B=256, k=100)
   B7f  float_packed_super_tile_topk path S1: 8192-row supertiles, k_sub=16
+  B4   float_tile_topk              path F1 (f32 bank, B=1024, k=10), path K
+                                    (bf16 bank, B=512, k=10)
 
 It prints one JSON line: for each case both trees' ms per call by turn,
 their medians, and whether their outputs are bit-equal; for each kernel
@@ -45,14 +48,19 @@ from hcrag_tpu_torch.ops.topk_cuda import _SIGNATURES
 
 TURNS, CALLS = 8, 3
 N_ROWS, N_BANK, DIM = 1_000_000, 1_007_616, 384
+N_TILED = 1_001_472  # N_ROWS in whole 2048-row tiles
 SOURCES = ("int8_tile_topk", "float_tile_topk")
-#: case -> (entry point, queries, per-tile k, tile or supertile rows)
+#: case -> (entry point, queries, per-tile k, tile or supertile rows, bank
+#: type, bank rows)
 CASES = {
-    "int8 B1": ("int8_tile_topk", 8192, 10, 2048),
-    "S2 B7i": ("int8_super_tile_topk", 8192, 16, 8192),
-    "F2 B5": ("float_packed_tile_topk", 8192, 10, 2048),
-    "S1 B7f": ("float_packed_super_tile_topk", 8192, 16, 8192),
-    "X B5": ("float_packed_tile_topk", 256, 100, 2048),
+    "int8 B1": ("int8_tile_topk", 8192, 10, 2048, "int8", N_BANK),
+    "S2 B7i": ("int8_super_tile_topk", 8192, 16, 8192, "int8", N_BANK),
+    "F2 B5": ("float_packed_tile_topk", 8192, 10, 2048, "bf16", N_BANK),
+    "S1 B7f": ("float_packed_super_tile_topk", 8192, 16, 8192, "bf16", N_BANK),
+    "X B5": ("float_packed_tile_topk", 256, 100, 2048, "bf16", N_BANK),
+    "F1 B4": ("float_tile_topk", 1024, 10, 2048, "f32", N_TILED),
+    "K B4": ("float_tile_topk", 512, 10, 2048, "bf16", N_TILED),
+    "int8 B3e": ("int8_exact_tile_topk", 2048, 10, 2048, "int8", N_TILED),
 }
 
 
@@ -94,8 +102,8 @@ def compare_sass(a: Path, b: Path) -> Dict[str, Dict]:
 
 
 def inputs(dev: torch.device, seed: int = 1) -> Dict[str, torch.Tensor]:
-    """The bank (bf16 and int8 with its scales), a row filter and queries
-    (bf16 and int8 with their scales), made on the card."""
+    """The bank (f32, bf16, and int8 with its scales), a row filter and
+    queries (f32, bf16, and int8 with their scales), made on the card."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     e = torch.nn.functional.normalize(torch.randn(N_BANK, DIM, device=dev, generator=g), dim=1)
@@ -104,8 +112,8 @@ def inputs(dev: torch.device, seed: int = 1) -> Dict[str, torch.Tensor]:
     q8, q_scale = quantize_queries(q)
     mask = torch.zeros(N_BANK, dtype=torch.bool, device=dev)
     mask[:N_ROWS] = True
-    return dict(e=e.to(torch.bfloat16), q=q.to(torch.bfloat16), e8=e8, e_scale=e_scale,
-                q8=q8, q_scale=q_scale, mask=mask)
+    return dict(f32=(q, e), bf16=(q.to(torch.bfloat16), e.to(torch.bfloat16)), e8=e8,
+                e_scale=e_scale, q8=q8, q_scale=q_scale, mask=mask)
 
 
 def time_cases(libs: Dict[str, Dict[str, Path]], dev: torch.device) -> Dict[str, Dict]:
@@ -121,19 +129,20 @@ def time_cases(libs: Dict[str, Dict[str, Path]], dev: torch.device) -> Dict[str,
             fn.restype = ctypes.c_int
             fns[tree, name] = fn
     out = {}
-    for case, (name, b, k, rows) in CASES.items():
-        tiles = -(-N_BANK // rows)
+    for case, (name, b, k, rows, bank, n) in CASES.items():
+        tiles = -(-n // rows)
         calls, outs = {}, {}
         for tree in libs:
             ov = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
             oi = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
-            if "int8" in name:
+            if bank == "int8":
                 args = (t["q8"][:b].data_ptr(), t["q_scale"][:b].data_ptr(), t["e8"].data_ptr(),
                         t["e_scale"].data_ptr(), t["mask"].data_ptr(), ov.data_ptr(),
-                        oi.data_ptr(), b, N_BANK, DIM, k, rows, stream)
+                        oi.data_ptr(), b, n, DIM, k, rows, stream)
             else:
-                args = (t["q"][:b].data_ptr(), t["e"].data_ptr(), t["mask"].data_ptr(),
-                        ov.data_ptr(), oi.data_ptr(), b, N_BANK, DIM, k, rows, 1, stream)
+                q, e = t[bank]
+                args = (q[:b].data_ptr(), e.data_ptr(), t["mask"].data_ptr(), ov.data_ptr(),
+                        oi.data_ptr(), b, n, DIM, k, rows, int(bank == "bf16"), stream)
             calls[tree] = (fns[tree, name], args)
             outs[tree] = (ov, oi)
         for fn, args in calls.values():

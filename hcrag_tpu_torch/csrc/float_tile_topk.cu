@@ -64,15 +64,31 @@
 // B1 and B7i share) brings B5 and B7f within about 6x of that bound; what
 // keeps them there is in PERF.md.
 //
-// Design of the CUDA-core kernel (as B3e's): one block takes QB = 64 queries
-// and one tile.  The query block stays in shared memory as f32; the tile
-// streams through shared memory in sub-tiles of RB = 64 rows and chunks of
-// DC = 64 columns.  256 threads each compute a 4 x 4 block of dots with
-// 16-byte shared loads (the dot loop of float_dot.cuh, which B8 shares),
-// write the keys to shared memory, and each warp merges the keys of its 8
-// queries into their sorted lists (tile_select.cuh).  Both kernels order
-// their blocks query block fastest, so all query blocks of one tile run
-// together and read the tile from L2.
+// Design of the CUDA-core kernel (B4 over either bank, B5 and B7f over an
+// f32 bank): one block takes QB = 128 queries and one tile, and runs the
+// register-tiled loop of float_dot.cuh (which B8 shares) over the tile's
+// 128-row sub-tiles.  The selection is a filtering epilogue, not a merge of
+// every key: after each sub-tile each thread holds the 8 x 8 sums of its 8
+// queries and 8 rows, and compares them, half a sub-tile (64 rows) at a
+// time, against each query's current k-th best key of the tile, read from
+// the query's sorted list in shared memory.  For B4's 64-bit key it
+// compares the 32-bit order-preserving value word first, and builds the
+// 64-bit key (word << 32 | ~row) only where the word reaches the k-th
+// one's (an equal word with a lower row still gets in).  Survivors go to
+// the query's candidate buffer (64 slots, by a shared atomicAdd).  After a
+// barrier the buffers are merged into the lists: up to k = 16 each lane of
+// a warp inserts one query's buffer into its list, one key at a time (the
+// warp's 16 queries at once); past that, where an insertion costs O(k),
+// the warp merges its queries' buffers one after another
+// (tile_select::merge_pair).  A second barrier publishes the new bounds.
+// About k ln(tile / k) + 64 of a tile's rows reach a query's buffers; the
+// buffers are laid out query-minor, so the lanes' loads fall in distinct
+// banks.  Shared memory: the loop's 16.5 KB, the buffers
+// (64 KB of 64-bit keys), the lists (QB x k keys) and 4 KB of merge
+// scratch: 97 KB at k = 10, so two blocks share an SM, and
+// 218 KB at k = 128, which still fits one.  Blocks are ordered query block
+// fastest, so all query blocks of one tile run together and read the tile
+// from L2.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,27 +102,29 @@
 
 namespace {
 
-using float_dot::DC;
-using float_dot::E_STRIDE;
 using float_dot::QB;
 using float_dot::RB;
 using float_dot::THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int Q_PER_WARP = QB / WARPS;
-constexpr int KEY_STRIDE = 68;  // keys per query row of the key buffer
+constexpr int Q_PER_WARP = QB / WARPS;  // queries whose buffers a warp merges
+constexpr int CAND = RB / 2;            // candidate slots per query: half a sub-tile
+constexpr int LANE_K = 16;  // up to this k, one lane merges each query's buffer
 constexpr int MAX_K = tile_select::MAX_K;
 constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
 
 // B4's key: order-preserving score bits | ~row.  Masked rows never enter
-// the list; its empty slots decode to the tile's -1e30 fill.
+// the list; its empty slots decode to the tile's -1e30 fill.  The epilogue
+// compares `word` (the high half) first and builds the key only for rows
+// whose word reaches the bound.
 struct ExactKey {
   using Key = long long;
   __device__ static Key filler() { return LLONG_MIN; }
-  __device__ static Key make(float dot, bool valid, int row) {
-    if (!valid) return LLONG_MIN;
+  __device__ static int word(float dot) {
     const int bits = __float_as_int(__fadd_rn(dot, 0.0f));
-    const unsigned skey = (unsigned)(bits ^ ((bits >> 31) & 0x7FFFFFFF));
-    return (long long)(((unsigned long long)skey << 32) |
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF);
+  }
+  __device__ static Key key(int word, int row) {
+    return (long long)(((unsigned long long)(unsigned)word << 32) |
                        (unsigned long long)(0xFFFFFFFFu - (unsigned)row));
   }
   __device__ static void decode(Key key, int tile_base, float* v, int* i) {
@@ -161,65 +179,135 @@ struct SuperKey {
   }
 };
 
-size_t smem_bytes(int d, int k, size_t key_bytes) {
-  return sizeof(float) * float_dot::smem_floats(d) +
-         key_bytes * (size_t)QB * (KEY_STRIDE + k) + sizeof(int) * RB;
+// Shared memory of the CUDA-core kernel: the loop's chunk buffers, then the
+// candidate buffers, the lists, each warp's 64 keys of merge scratch, and
+// the counts.
+size_t smem_bytes(int k, size_t key_bytes) {
+  return float_dot::SMEM_BYTES + key_bytes * ((size_t)QB * (CAND + k) + WARPS * 64) +
+         sizeof(int) * QB;
+}
+
+template <typename Key>
+__device__ __forceinline__ Key pick4(const Key (&v)[4], int x) {
+  return x == 0 ? v[0] : x == 1 ? v[1] : x == 2 ? v[2] : v[3];
 }
 
 template <typename T, typename K>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 float_tile_topk_kernel(const T* __restrict__ q, const T* __restrict__ e,
                        const uint8_t* __restrict__ mask,
                        float* __restrict__ out_v, int* __restrict__ out_i,
                        int b, int n, int d, int k, int tile_n, int tiles,
                        const K policy) {
   using Key = typename K::Key;
+  constexpr bool WIDE = sizeof(Key) == 8;  // B4's key: compare the value word first
   extern __shared__ __align__(16) unsigned char smem[];
-  const int q_stride = d + 4;  // padded rows spread the shared banks
-  float* q_rows = reinterpret_cast<float*>(smem);
-  float* e_rows = q_rows + QB * q_stride;  // float_dot's layout
-  Key* keys = reinterpret_cast<Key*>(e_rows + RB * E_STRIDE);
-  Key* lists = keys + QB * KEY_STRIDE;
-  int* valid_s = reinterpret_cast<int*>(lists + QB * k);
+  Key* cand = reinterpret_cast<Key*>(smem + float_dot::SMEM_BYTES);  // [CAND][QB]
+  Key* lists = cand + QB * CAND;                                     // [QB][k], descending
+  Key* scratch = lists + QB * k;                                     // [WARPS][64]
+  int* cnt = reinterpret_cast<int*>(scratch + WARPS * 64);           // [QB]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tq = tid >> 4;  // queries tq*4 .. tq*4+3
-  const int tr = tid & 15;  // rows tr, tr+16, tr+32, tr+48 of the sub-tile
+  const int tx = float_dot::thread_tx();
   const int q0 = blockIdx.x * QB;
   const int tile = blockIdx.y;
   const int tile_base = tile * tile_n;
   const int rows_here = min(tile_n, n - tile_base);
 
-  float_dot::stage_queries(q, q_rows, q0, b, d);
   for (int x = tid; x < QB * k; x += THREADS) lists[x] = K::filler();
+  for (int x = tid; x < QB; x += THREADS) cnt[x] = 0;
 
-  for (int sub = 0; sub < rows_here; sub += RB) {
-    float acc[4][4];
-    float_dot::sub_tile_dots(e, q_rows, e_rows, d, tile_base, sub, rows_here, acc,
-                             [&](int dc) {
-                               if (dc == 0 && tid < RB) {
-                                 const bool in = sub + tid < rows_here;
-                                 valid_s[tid] = in ? (mask[tile_base + sub + tid] != 0) : -1;
-                               }
-                             });
-
+  float_dot::tile_dots(q, e, reinterpret_cast<float*>(smem), b, d, q0, tile_base, rows_here,
+                       [&](float (&acc)[8][8], int sub) {
+    // The flags of this thread's 8 rows: inside the tile, and mask set.
+    unsigned inside = 0, valid = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tr + 16 * j;
-        const int vs = valid_s[r];
-        // Rows past the tile's end never enter a list.
-        keys[(tq * 4 + i) * KEY_STRIDE + r] =
-            vs < 0 ? K::filler() : policy.make(acc[i][j], vs != 0, sub + r);
+    for (int j = 0; j < 8; ++j) {
+      const int r = sub + float_dot::row_of(j);
+      if (r < rows_here) {
+        inside |= 1u << j;
+        valid |= (unsigned)(mask[tile_base + r] != 0) << j;
       }
-    __syncthreads();
-
-    for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq)
-      tile_select::merge_64(keys + qq * KEY_STRIDE, lists + qq * k, k, lane);
-  }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows 64 h .. 64 h + 63 of the sub-tile
+      const int r0 = sub + 64 * h + 4 * tx;  // this thread's rows r0 .. r0 + 3
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int qq = float_dot::query_of(i);
+        const Key t = lists[qq * k + k - 1];
+        Key key[4];
+        int word[4];
+        unsigned pass = 0;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * h + jj;
+          if constexpr (WIDE) {
+            word[jj] = K::word(acc[i][j]);
+            pass |= (unsigned)(((valid >> j) & 1) && word[jj] >= (int)(t >> 32)) << jj;
+          } else {
+            key[jj] = policy.make(acc[i][j], (valid >> j) & 1, r0 + jj);
+            pass |= (unsigned)(((inside >> j) & 1) && key[jj] > t) << jj;
+          }
+        }
+        while (pass) {
+          const int x = __ffs(pass) - 1;
+          pass &= pass - 1;
+          Key c;
+          if constexpr (WIDE) {
+            c = K::key(pick4(word, x), r0 + x);
+            if (!(c > t)) continue;
+          } else {
+            c = pick4(key, x);
+          }
+          cand[atomicAdd(cnt + qq, 1) * QB + qq] = c;
+        }
+      }
+      __syncthreads();
+      // The merges of the warp's queries' buffers into their lists.
+      if (k <= LANE_K) {
+        // Lane l inserts the buffer of query 16 w + l into its list, one
+        // key at a time (16 lists at once, each a lane's own).
+        if (lane < Q_PER_WARP) {
+          const int qq = warp * Q_PER_WARP + lane;
+          Key* L = lists + qq * k;
+          Key kth = L[k - 1];
+          const int c = cnt[qq];
+          for (int x = 0; x < c; ++x) {
+            const Key key = cand[x * QB + qq];
+            if (!(key > kth)) continue;
+            int j = k - 1;
+            for (; j > 0; --j) {
+              const Key up = L[j - 1];
+              if (!(up < key)) break;
+              L[j] = up;
+            }
+            L[j] = key;
+            kth = L[k - 1];
+          }
+          cnt[qq] = 0;
+        }
+      } else {
+        // The warp merges the buffers of its queries that have any.
+        const int mine = lane < Q_PER_WARP ? cnt[warp * Q_PER_WARP + lane] : 0;
+        unsigned busy = __ballot_sync(tile_select::FULL, mine > 0);
+        while (busy) {
+          const int qq = warp * Q_PER_WARP + __ffs(busy) - 1;
+          busy &= busy - 1;
+          const int c = cnt[qq];
+          const Key x0 = lane < c ? cand[lane * QB + qq] : K::filler();
+          const Key x1 = lane + 32 < c ? cand[(lane + 32) * QB + qq] : K::filler();
+          tile_select::merge_pair(lists + qq * k, k, x0, x1, K::filler(),
+                                  scratch + warp * 64, lane);
+        }
+        __syncwarp();
+        if (lane < Q_PER_WARP) cnt[warp * Q_PER_WARP + lane] = 0;
+      }
+      __syncthreads();  // the new lists (bounds) and empty buffers
+    }
+  });
 
   for (int qq = warp * Q_PER_WARP; qq < (warp + 1) * Q_PER_WARP; ++qq) {
     const int gq = q0 + qq;
@@ -238,11 +326,12 @@ template <typename T, typename K>
 int launch(const K policy, const void* q, const void* e, const void* mask,
            void* out_v, void* out_i, int b, int n, int d, int k, int tile_n,
            int max_tile, void* stream) {
-  if (b <= 0 || n <= 0 || d <= 0 || d % DC != 0 || k < 1 || k > MAX_K ||
-      k > tile_n || tile_n % RB != 0 || tile_n > max_tile)
+  if (b <= 0 || n <= 0 || d <= 0 || d % 64 != 0 || k < 1 || k > MAX_K ||
+      k > tile_n || tile_n % 64 != 0 || tile_n > max_tile || (size_t)q % 16 != 0 ||
+      (size_t)e % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n + tile_n - 1) / tile_n;
-  const size_t smem = smem_bytes(d, k, sizeof(typename K::Key));
+  const size_t smem = smem_bytes(k, sizeof(typename K::Key));
   if (tiles > 65535 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       float_tile_topk_kernel<T, K>,

@@ -34,18 +34,21 @@
 // their times are the floor of that loop and of its stages (B5 over a bf16
 // bank runs on the tensor cores and is timed beside them).
 //
-// Design: the CUDA-core kernel's grid and loop.  A block takes 64 queries and 2048 rows: one
-// tile of 2048 rows (B5's block), or 2048 / tile_n whole tiles of a smaller
-// tile, so that a block's work does not depend on tile_n.  Each thread
-// (tq, tr) owns columns tr + 16j and 64 + tr + 16j (j < 4) of every
-// 128-column group, for its 4 queries.  B8c folds m1 and m2 through a tile's
-// groups in registers; B8a's running maxima and B8c's running max over the
-// block's tiles sit in shared memory, in slots that only that thread
-// touches, which keeps the fold out of the dot loop's registers.  The max
-// over blocks is an atomic max into the output, which the wrapper fills
-// first (B8a: -1e30, B8c: 0); a block skips the atomic where the output
-// already holds at least its value, so that the ~489 blocks that fold into
-// each output word at the sweep's shapes do not queue on it.
+// Design: the CUDA-core kernel's grid and loop (float_dot.cuh).  A block
+// takes 128 queries and 2048 rows: one tile of 2048 rows (B5's block), or
+// 2048 / tile_n whole tiles of a smaller tile, run as one stream of 128-row
+// sub-tiles, so that a block's work does not depend on tile_n.  A sub-tile
+// is one 128-column group of its tile, and each thread owns lanes row_of(j)
+// (j < 8) of every group for its 8 queries.  B8a's running maxima, B8c's
+// level-1 pair (m1, m2) of the current tile, sit in shared memory, in slots
+// that only that thread touches, which keeps the fold out of the dot loop's
+// registers (B8c's 128 KB of pairs leave room for one block an SM, B8a's
+// 64 KB of maxima for two, as B4's kernel has).  The max over blocks is an
+// atomic max into the output, which the wrapper fills first (B8a: -1e30,
+// B8c: 0), after the block's last tile (B8a) or after each tile (B8c); a
+// thread skips the atomic where the output already holds at least its
+// value, so that the ~489 blocks that fold into each output word at the
+// sweep's shapes do not queue on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,14 +57,13 @@
 
 namespace {
 
-using float_dot::DC;
-using float_dot::E_STRIDE;
 using float_dot::QB;
 using float_dot::RB;
 using float_dot::THREADS;
 constexpr int LANES = 128;        // output columns per tile (B8a, B8b); lanes (B8c)
 constexpr int BLOCK_ROWS = 2048;  // index rows per block: B5's tile
 constexpr int MAX_SMEM = 232448;  // what one block may use on sm_90
+static_assert(RB == LANES, "a sub-tile is one 128-column group");
 
 enum Stage { ACC = 0, WIDE = 1, ENCODE = 2 };
 
@@ -74,142 +76,105 @@ __device__ __forceinline__ void atomic_max_f32(float* out, float v) {
     atomicMin(reinterpret_cast<unsigned*>(out), __float_as_uint(v));
 }
 
-// The thread's running max of columns h * 64 + tr + 16j (B8a): query row r
-// of the block at lane_max[r * 128 + column].
-__device__ __forceinline__ void fold_max(float* lane_max, const float (&acc)[4][4], int tq,
-                                         int tr, int h) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* slot = lane_max + (tq * 4 + i) * LANES + h * 64 + tr + 16 * j;
-      *slot = fmaxf(*slot, acc[i][j]);
-    }
+// Shared memory past the loop's: B8a's maxima [QB][128] f32, B8c's pairs
+// m1 [QB][128] and m2 [QB][128] int32.
+size_t smem_bytes(int stage) {
+  return float_dot::SMEM_BYTES +
+         (stage == ACC ? sizeof(float) * QB * LANES
+          : stage == ENCODE ? sizeof(int) * QB * 2 * LANES : 0);
 }
 
-// One group's keys into the level-1 pair: the first group of a tile starts
-// it (m2 = 0), every later one updates it as the Pallas kernel does.
-__device__ __forceinline__ void level1(int (&m1)[4][4], int (&m2)[4][4],
-                                       const float (&acc)[4][4], int col0, bool first) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = (__float_as_int(__fadd_rn(acc[i][j], 2.0f)) & ~0x7FF) |
-                      (2047 - (col0 + 16 * j));
-      if (first) {
-        m1[i][j] = key;
-        m2[i][j] = 0;
-      } else {
-        m2[i][j] = max(m2[i][j], min(m1[i][j], key));
-        m1[i][j] = max(m1[i][j], key);
-      }
-    }
-}
-
-// The thread's running max over the block's tiles (B8c): query row r of
-// the block, lanes h * 64 + tr + 16j, m1 at lane, m2 at 128 + lane.
-__device__ __forceinline__ void fold_best(int* best, const int (&m1)[4][4],
-                                          const int (&m2)[4][4], int tq, int tr, int h) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int* slot = best + (tq * 4 + i) * 2 * LANES + h * 64 + tr + 16 * j;
-      slot[0] = max(slot[0], m1[i][j]);
-      slot[LANES] = max(slot[LANES], m2[i][j]);
-    }
-}
-
+// B8a and B8b take B4's two blocks an SM (and so its register cap); B8c's
+// shared memory leaves room for one.
 template <int STAGE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, STAGE == ENCODE ? 1 : 2)
 sweep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ e,
              void* __restrict__ out, int* __restrict__ sink, int b, int d, int tile_n,
              int tiles, int tiles_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_rows = reinterpret_cast<float*>(smem);  // float_dot's layout
-  float* e_rows = q_rows + QB * (d + 4);
-  float* lane_max = e_rows + RB * E_STRIDE;             // B8a: [QB][128]
-  int* best = reinterpret_cast<int*>(e_rows + RB * E_STRIDE);  // B8c: [QB][256]
+  float* lane_max = reinterpret_cast<float*>(smem + float_dot::SMEM_BYTES);  // B8a
+  int* m1s = reinterpret_cast<int*>(smem + float_dot::SMEM_BYTES);           // B8c
+  int* m2s = m1s + QB * LANES;
 
   const int tid = threadIdx.x;
-  const int tq = tid >> 4;  // queries tq*4 .. tq*4+3
-  const int tr = tid & 15;  // columns tr, tr+16, tr+32, tr+48 of a sub-tile
   const int q0 = blockIdx.x * QB;
   const int t_first = blockIdx.y * tiles_per_block;
   const int t_end = min(tiles, t_first + tiles_per_block);
 
-  float_dot::stage_queries(q, q_rows, q0, b, d);
-  // B8c: m1 and m2 of lanes tr + 16j (lo) and 64 + tr + 16j (hi).
-  int lo_m1[4][4], lo_m2[4][4], hi_m1[4][4], hi_m2[4][4];
-  // The first barrier of sub_tile_dots publishes these.
   if (STAGE == ACC)
     for (int x = tid; x < QB * LANES; x += THREADS) lane_max[x] = -1e30f;
-  if (STAGE == ENCODE)
-    for (int x = tid; x < QB * 2 * LANES; x += THREADS) best[x] = 0;
   int dead = 0;  // the fold of the dots that reach no output (B8a, B8b)
 
-  for (int t = t_first; t < t_end; ++t) {
-    for (int sub = 0; sub < tile_n; sub += RB) {
-      float acc[4][4];
-      float_dot::sub_tile_dots(e, q_rows, e_rows, d, t * tile_n, sub, tile_n, acc,
-                               [](int) {});
-      const int h = (sub / RB) & 1;  // which half of its 128-column group
-      if (STAGE == ENCODE) {
-        const bool first = sub < LANES;
-        if (h == 0)
-          level1(lo_m1, lo_m2, acc, sub + tr, first);
-        else
-          level1(hi_m1, hi_m2, acc, sub + tr, first);
-      } else if (sub >= LANES) {
+  // The tile_dots' first barrier publishes lane_max.
+  float_dot::tile_dots(q, e, reinterpret_cast<float*>(smem), b, d, q0, t_first * tile_n,
+                       (t_end - t_first) * tile_n, [&](float (&acc)[8][8], int sub) {
+    const int t = t_first + sub / tile_n;
+    const int col0 = sub % tile_n;  // the group's first column in its tile
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const int r = float_dot::query_of(i);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) dead ^= __float_as_int(acc[i][j]);
-      } else if (STAGE == ACC) {
-        fold_max(lane_max, acc, tq, tr, h);
-      } else {  // WIDE
-        float* o = static_cast<float*>(out);
-        const size_t width = (size_t)tiles * LANES;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gq = q0 + tq * 4 + i;
-          if (gq >= b) break;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            o[gq * width + (size_t)t * LANES + sub + tr + 16 * j] = acc[i][j];
+      for (int j = 0; j < 8; ++j) {
+        const int lane = float_dot::row_of(j);
+        if (STAGE == ENCODE) {
+          // One group's key into the tile's level-1 pair: the first group
+          // starts it (m2 = 0), every later one updates it as the Pallas
+          // kernel does.
+          const int key = (__float_as_int(__fadd_rn(acc[i][j], 2.0f)) & ~0x7FF) |
+                          (2047 - (col0 + lane));
+          int* m1 = m1s + r * LANES + lane;
+          int* m2 = m2s + r * LANES + lane;
+          if (col0 == 0) {
+            *m1 = key;
+            *m2 = 0;
+          } else {
+            *m2 = max(*m2, min(*m1, key));
+            *m1 = max(*m1, key);
+          }
+        } else if (col0 != 0) {
+          dead ^= __float_as_int(acc[i][j]);
+        } else if (STAGE == ACC) {
+          float* slot = lane_max + r * LANES + lane;
+          *slot = fmaxf(*slot, acc[i][j]);
+        } else if (q0 + r < b) {  // WIDE
+          static_cast<float*>(out)[(size_t)(q0 + r) * tiles * LANES + (size_t)t * LANES +
+                                   lane] = acc[i][j];
         }
       }
     }
-    if (STAGE == ENCODE) {
-      fold_best(best, lo_m1, lo_m2, tq, tr, 0);
-      fold_best(best, hi_m1, hi_m2, tq, tr, 1);
-    }
-  }
-
+    if (STAGE == ENCODE && col0 + RB == tile_n) {
+      // The tile's pairs into the output.  The output only grows, so a
+      // value at or below what it holds (or held: an older value is
+      // smaller) needs no atomic.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tq * 4 + i;
-    if (q0 + r >= b) break;
+      for (int i = 0; i < 8; ++i) {
+        const int r = float_dot::query_of(i);
+        if (q0 + r >= b) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int lane = h * 64 + tr + 16 * j;
-        // The output only grows, so a value at or below what the output
-        // holds (or held: an older value is smaller) needs no atomic.
-        if (STAGE == ACC) {
-          float* o = static_cast<float*>(out) + (size_t)(q0 + r) * LANES + lane;
-          const float v = lane_max[r * LANES + lane];
-          if (v > __ldcg(o)) atomic_max_f32(o, v);
-        } else if (STAGE == ENCODE) {
+        for (int j = 0; j < 8; ++j) {
+          const int lane = float_dot::row_of(j);
           int* o = static_cast<int*>(out) + (size_t)(q0 + r) * 2 * LANES + lane;
-          const int m1 = best[r * 2 * LANES + lane];
-          const int m2 = best[r * 2 * LANES + LANES + lane];
+          const int m1 = m1s[r * LANES + lane], m2 = m2s[r * LANES + lane];
           if (m1 > __ldcg(o)) atomicMax(o, m1);
           if (m2 > __ldcg(o + LANES)) atomicMax(o + LANES, m2);
         }
       }
+    }
+  });
+
+  if (STAGE == ACC) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = float_dot::query_of(i);
+      if (q0 + r >= b) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int lane = float_dot::row_of(j);
+        float* o = static_cast<float*>(out) + (size_t)(q0 + r) * LANES + lane;
+        const float v = lane_max[r * LANES + lane];
+        if (v > __ldcg(o)) atomic_max_f32(o, v);
+      }
+    }
   }
   if (sink != nullptr) sink[blockIdx.y * gridDim.x * THREADS + blockIdx.x * THREADS + tid] = dead;
 }
@@ -217,15 +182,13 @@ sweep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 template <int STAGE>
 int launch(const void* q, const void* e, void* out, int b, int n, int d, int tile_n,
            void* stream) {
-  if (b <= 0 || n <= 0 || d <= 0 || d % DC != 0 || tile_n < LANES ||
+  if (b <= 0 || n <= 0 || d <= 0 || d % 64 != 0 || tile_n < LANES ||
       tile_n > BLOCK_ROWS || tile_n % LANES != 0 || n % tile_n != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = n / tile_n;
   const int tiles_per_block = BLOCK_ROWS / tile_n;
   const int blocks_y = (tiles + tiles_per_block - 1) / tiles_per_block;
-  const size_t smem = sizeof(float) * float_dot::smem_floats(d) +
-                      (STAGE == ACC ? sizeof(float) * QB * LANES
-                       : STAGE == ENCODE ? sizeof(int) * QB * 2 * LANES : 0);
+  const size_t smem = smem_bytes(STAGE);
   if (blocks_y > 65535 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -35,6 +35,16 @@
 //   * larger k: the key goes to the query's buffer in shared memory, and
 //     each warp merges the buffers of its 16 queries that have any into
 //     their sorted lists (tile_select::merge_pair).
+// The key is 32 bits (B1, B7i, B5, B7f) or 64 bits (B3e, over int8: the
+// order-preserving value word above 0xFFFFFFFF - row), a property of the
+// policy's `Key` type; the lists, filters, buffers and tile-end sort take
+// that type.  64-bit register lists hold 10 keys in 128-query blocks
+// (k <= 10) and 16 in 64-query blocks (k <= 16; see list_cap).  A 64-bit
+// epilogue computes the 32-bit value words (`policy.word`) of its 32 sums
+// and compares them with its filters' high halves first: the 64-bit key
+// (`K::key(word, row)`) is built, and compared in full, only for the few
+// rows whose word reaches the filter.  The 64-bit code sits behind
+// `if constexpr`, so the 32-bit instances hold none of it.
 // Rows past the tile's end never enter a list; their slots stay fillers.
 // DOTS writes the raw sums to out_v ([b, n]) instead: the loop's own
 // numbers, for measuring its error (bf16 only).  Blocks are ordered query
@@ -55,6 +65,7 @@ constexpr int RB = 64;              // rows per sub-tile
 constexpr int STAGES = 4;           // chunks in the ring
 constexpr int CHUNK = RB * 128;     // bytes of one chunk: 64 rows x 128 bytes
 constexpr int KCAP = 16;            // the register lists' length
+constexpr int KCAP_WIDE = 10;       // the same for 64-bit keys in 128-query blocks
 constexpr int MAX_K = tile_select::MAX_K;
 constexpr int MAX_SMEM = 232448;    // what one block may use on sm_90
 
@@ -81,23 +92,23 @@ __host__ __device__ inline int row_chunks(int d, int bytes) { return (d * bytes 
 
 // Shared memory, with 1024 bytes to align the operands to the swizzle's
 // 1024-byte atoms: the query block, the ring with its two mbarriers a slot,
-// the key buffers, the lists and their counts.
-inline size_t smem_bytes(int qb, int d, int bytes, int k) {
+// the key buffers and the lists (key_bytes a key), and the counts.
+inline size_t smem_bytes(int qb, int d, int bytes, int k, size_t key_bytes) {
   return 1024 + (size_t)qb * row_chunks(d, bytes) * 128 + (size_t)STAGES * (CHUNK + 16) +
-         sizeof(int) * ((size_t)qb * RB + (size_t)qb * k + qb);
+         key_bytes * ((size_t)qb * RB + (size_t)qb * k) + sizeof(int) * qb;
 }
 
 // Insert x into the descending register list v (its last entry below x).
-template <int N>
-__device__ __forceinline__ void reg_insert(int (&v)[N], int x) {
+template <typename Key, int N>
+__device__ __forceinline__ void reg_insert(Key (&v)[N], Key x) {
 #pragma unroll
   for (int i = N - 1; i > 0; --i) v[i] = v[i - 1] < x ? v[i - 1] : (v[i] < x ? x : v[i]);
   v[0] = v[0] < x ? x : v[0];
 }
 
-template <int N>
-__device__ __forceinline__ int reg_kth(const int (&v)[N], int k) {
-  int t = v[0];
+template <typename Key, int N>
+__device__ __forceinline__ Key reg_kth(const Key (&v)[N], int k) {
+  Key t = v[0];
 #pragma unroll
   for (int i = 1; i < N; ++i)
     if (i == k - 1) t = v[i];
@@ -118,6 +129,11 @@ __device__ __forceinline__ int quad_min(int x) {
   return min(x, __shfl_xor_sync(tile_select::FULL, x, 2));
 }
 
+__device__ __forceinline__ long long quad_min(long long x) {
+  x = min(x, __shfl_xor_sync(tile_select::FULL, x, 1));
+  return min(x, __shfl_xor_sync(tile_select::FULL, x, 2));
+}
+
 template <int TQB, int KC, typename Op, typename K, bool DOTS>
 __global__ void __launch_bounds__(TQB * 2 + 32)
 tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
@@ -128,15 +144,18 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
   constexpr int NT = TQB * 2;    // the consumer warpgroups' threads
   constexpr int NW = NT / 32;
   constexpr int QPW = TQB / NW;  // queries each warp holds and merges: 16
+  using Key = typename K::Key;
+  constexpr bool WIDE = sizeof(Key) == 8;  // B3e: compare the value word first
+  static_assert(!WIDE || Op::SCALED, "64-bit keys are B3e's, over int8");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int kc_n = row_chunks(d, Op::BYTES);
   unsigned char* q_s =                                // kc_n chunks of TQB rows
       smem_raw + ((1024 - (tc_mma::smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = q_s + (size_t)TQB * kc_n * 128;  // STAGES chunks of 64 rows
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * CHUNK);  // full, empty
-  int* cand = reinterpret_cast<int*>(bars + 2 * STAGES);  // [TQB][RB]
-  int* lists = cand + TQB * RB;                       // [TQB][k], sorted descending
-  int* cnt = lists + TQB * k;                         // [TQB]
+  Key* cand = reinterpret_cast<Key*>(bars + 2 * STAGES);  // [TQB][RB]
+  Key* lists = cand + TQB * RB;                       // [TQB][k], sorted descending
+  int* cnt = reinterpret_cast<int*>(lists + TQB * k);  // [TQB]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -210,8 +229,8 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
 #pragma unroll
   for (int x = 0; x < 32; ++x) acc[x] = 0;
   constexpr int NL = KC > 0 ? KC : 1;
-  int l0[NL], l1[NL];  // KC: this thread's lists of its two queries
-  int t0 = K::filler(), t1 = K::filler();  // and their filters
+  Key l0[NL], l1[NL];  // KC: this thread's lists of its two queries
+  Key t0 = K::filler(), t1 = K::filler();  // and their filters
 #pragma unroll
   for (int i = 0; i < NL; ++i) l0[i] = l1[i] = K::filler();
   // The mask bytes of this thread's rows 8 j + 2 (lane % 4) + {0, 1} of the
@@ -271,42 +290,81 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
       t0 = lists[qw * k + k - 1];
       t1 = lists[(qw + 8) * k + k - 1];
     }
-    // The keys of this thread's 16 rows for each of its two queries, and
-    // which beat the filters.  Only this short loop indexes acc, so it
-    // unrolls and acc stays in registers.
-    int key0[16], key1[16];
-    unsigned pass0 = 0, pass1 = 0;
+    if constexpr (WIDE) {
+      // The value words of this thread's 16 rows for each of its two
+      // queries, and which reach the filters' words; of those, the keys
+      // that beat the filters join the lists or the buffers.
+      int w0[16], w1[16];
+      unsigned pass0 = 0, pass1 = 0;
+      const int tw0 = (int)(t0 >> 32), tw1 = (int)(t1 >> 32);
 #pragma unroll
-    for (int x = 0; x < 16; ++x) {
-      const int j = x >> 1, c = x & 1;
-      const int r = sub + 8 * j + 2 * (lane & 3) + c;
-      const bool valid = ((mb[j] >> (8 * c)) & 0xFF) != 0;
-      if constexpr (Op::SCALED) {
+      for (int x = 0; x < 16; ++x) {
+        const int j = x >> 1, c = x & 1;
+        const int r = sub + 8 * j + 2 * (lane & 3) + c;
+        const bool valid = ((mb[j] >> (8 * c)) & 0xFF) != 0;
         const float esc = c ? es[j].y : es[j].x;
-        key0[x] = policy.make(acc[4 * j + c], qs0, esc, valid, r);
-        key1[x] = policy.make(acc[4 * j + 2 + c], qs1, esc, valid, r);
-      } else {
-        key0[x] = policy.make(acc[4 * j + c], valid, r);
-        key1[x] = policy.make(acc[4 * j + 2 + c], valid, r);
+        w0[x] = policy.word(acc[4 * j + c], qs0, esc);
+        w1[x] = policy.word(acc[4 * j + 2 + c], qs1, esc);
+        if (r < rows_here && valid) {
+          pass0 |= (unsigned)(w0[x] >= tw0) << x;
+          pass1 |= (unsigned)(w1[x] >= tw1) << x;
+        }
       }
-      if (r < rows_here) {  // past the tile: never a candidate
-        pass0 |= (unsigned)(key0[x] > t0) << x;
-        pass1 |= (unsigned)(key1[x] > t1) << x;
+      const int rl = sub + 2 * (lane & 3);  // the row of x: rl + 8 (x / 2) + x % 2
+      while (pass0) {
+        const int x = __ffs(pass0) - 1;
+        pass0 &= pass0 - 1;
+        const Key key = K::key(pick16(w0, x), rl + 8 * (x >> 1) + (x & 1));
+        if (!(key > t0)) continue;
+        if (KC > 0) reg_insert(l0, key);
+        else cand[qw * RB + atomicAdd(cnt + qw, 1)] = key;
       }
-    }
-    while (pass0) {
-      const int x = __ffs(pass0) - 1;
-      pass0 &= pass0 - 1;
-      const int key = pick16(key0, x);
-      if (KC > 0) reg_insert(l0, key);
-      else cand[qw * RB + atomicAdd(cnt + qw, 1)] = key;
-    }
-    while (pass1) {
-      const int x = __ffs(pass1) - 1;
-      pass1 &= pass1 - 1;
-      const int key = pick16(key1, x);
-      if (KC > 0) reg_insert(l1, key);
-      else cand[(qw + 8) * RB + atomicAdd(cnt + qw + 8, 1)] = key;
+      while (pass1) {
+        const int x = __ffs(pass1) - 1;
+        pass1 &= pass1 - 1;
+        const Key key = K::key(pick16(w1, x), rl + 8 * (x >> 1) + (x & 1));
+        if (!(key > t1)) continue;
+        if (KC > 0) reg_insert(l1, key);
+        else cand[(qw + 8) * RB + atomicAdd(cnt + qw + 8, 1)] = key;
+      }
+    } else {
+      // The keys of this thread's 16 rows for each of its two queries, and
+      // which beat the filters.  Only this short loop indexes acc, so it
+      // unrolls and acc stays in registers.
+      int key0[16], key1[16];
+      unsigned pass0 = 0, pass1 = 0;
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int j = x >> 1, c = x & 1;
+        const int r = sub + 8 * j + 2 * (lane & 3) + c;
+        const bool valid = ((mb[j] >> (8 * c)) & 0xFF) != 0;
+        if constexpr (Op::SCALED) {
+          const float esc = c ? es[j].y : es[j].x;
+          key0[x] = policy.make(acc[4 * j + c], qs0, esc, valid, r);
+          key1[x] = policy.make(acc[4 * j + 2 + c], qs1, esc, valid, r);
+        } else {
+          key0[x] = policy.make(acc[4 * j + c], valid, r);
+          key1[x] = policy.make(acc[4 * j + 2 + c], valid, r);
+        }
+        if (r < rows_here) {  // past the tile: never a candidate
+          pass0 |= (unsigned)(key0[x] > t0) << x;
+          pass1 |= (unsigned)(key1[x] > t1) << x;
+        }
+      }
+      while (pass0) {
+        const int x = __ffs(pass0) - 1;
+        pass0 &= pass0 - 1;
+        const int key = pick16(key0, x);
+        if (KC > 0) reg_insert(l0, key);
+        else cand[qw * RB + atomicAdd(cnt + qw, 1)] = key;
+      }
+      while (pass1) {
+        const int x = __ffs(pass1) - 1;
+        pass1 &= pass1 - 1;
+        const int key = pick16(key1, x);
+        if (KC > 0) reg_insert(l1, key);
+        else cand[(qw + 8) * RB + atomicAdd(cnt + qw + 8, 1)] = key;
+      }
     }
     if (KC > 0) {
       // The next sub-tile's filters: a key must beat this thread's own
@@ -325,9 +383,9 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
       const int qq = warp * QPW + __ffs(busy) - 1;
       busy &= busy - 1;
       const int c = cnt[qq];
-      int* buf = cand + qq * RB;
-      const int x0 = lane < c ? buf[lane] : K::filler();
-      const int x1 = lane + 32 < c ? buf[lane + 32] : K::filler();
+      Key* buf = cand + qq * RB;
+      const Key x0 = lane < c ? buf[lane] : K::filler();
+      const Key x1 = lane + 32 < c ? buf[lane + 32] : K::filler();
       __syncwarp();  // buf is the merge's scratch
       tile_select::merge_pair(lists + qq * k, k, x0, x1, K::filler(), buf, lane);
     }
@@ -350,7 +408,9 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
     const int gq = q0 + qq;
     if (gq >= b) break;
     if (KC > 0) {
-      int x0 = cand[qq * RB + lane], x1 = cand[qq * RB + 32 + lane];
+      // 4 NL keys a query: past them (NL < 16), fillers.
+      Key x0 = cand[qq * RB + lane];
+      Key x1 = 32 + lane < 4 * NL ? cand[qq * RB + 32 + lane] : K::filler();
       tile_select::sort64_desc(x0, x1, lane);
       if (lane < k) {
         const size_t o = ((size_t)gq * tiles + tile) * k + lane;
@@ -358,7 +418,7 @@ tc_tile_topk_kernel(const __grid_constant__ CUtensorMap emap,
       }
       continue;
     }
-    const int* L = lists + qq * k;
+    const Key* L = lists + qq * k;
     for (int j = lane; j < k; j += 32) {
       const size_t o = ((size_t)gq * tiles + tile) * k + j;
       policy.decode(L[j], tile_base, out_v + o, out_i + o);
@@ -426,16 +486,27 @@ int launch_kernel(const K policy, const CUtensorMap& emap, const Args& a, size_t
   return (int)cudaGetLastError();
 }
 
+// The register lists' length: KCAP, but for 64-bit keys in 128-query
+// blocks KCAP_WIDE.  Those blocks' 9 warps (3 on some of the SM's four
+// schedulers) leave a thread 168 registers, where 16 64-bit keys a list
+// spill; 64-query blocks (5 warps) leave 255, so 64-bit keys at
+// KCAP_WIDE < k <= KCAP take those.
+template <int TQB, typename K>
+constexpr int list_cap() {
+  return sizeof(typename K::Key) == 8 && TQB == 128 ? KCAP_WIDE : KCAP;
+}
+
 template <int TQB, typename Op, typename K, bool DOTS>
 int launch_k(const K policy, const CUtensorMap& emap, const Args& a) {
-  const size_t smem = smem_bytes(TQB, a.d, Op::BYTES, a.k);
-  if (a.k <= KCAP) return launch_kernel<TQB, KCAP, Op, K, DOTS>(policy, emap, a, smem);
+  constexpr int CAP = list_cap<TQB, K>();
+  const size_t smem = smem_bytes(TQB, a.d, Op::BYTES, a.k, sizeof(typename K::Key));
+  if (a.k <= CAP) return launch_kernel<TQB, CAP, Op, K, DOTS>(policy, emap, a, smem);
   return launch_kernel<TQB, 0, Op, K, DOTS>(policy, emap, a, smem);
 }
 
 // Check the operands and launch the kernel with the widest query block that
-// fits.  `max_tile` is 2048 for B1 and B5 (an 11-bit lane field) and 8192
-// for B7i and B7f.
+// fits.  `max_tile` is 2048 for B1, B3e and B5 (an 11-bit lane field; B3e
+// keeps B1's tiles) and 8192 for B7i and B7f.
 template <typename Op, typename K, bool DOTS>
 int launch(const K policy, Args a, int max_tile) {
   if (a.b <= 0 || a.n <= 0 || !Op::depth_ok(a.d) || a.k < 1 || a.k > MAX_K ||
@@ -447,9 +518,11 @@ int launch(const K policy, Args a, int max_tile) {
   CUtensorMap emap;
   const int err = tensor_map<Op>(a.e, a.n, a.d, &emap);
   if (err) return err;
-  if (smem_bytes(128, a.d, Op::BYTES, a.k) <= MAX_SMEM)
+  const size_t key_bytes = sizeof(typename K::Key);
+  const bool only_64 = list_cap<128, K>() < a.k && a.k <= KCAP;
+  if (!only_64 && smem_bytes(128, a.d, Op::BYTES, a.k, key_bytes) <= MAX_SMEM)
     return launch_k<128, Op, K, DOTS>(policy, emap, a);
-  if (smem_bytes(64, a.d, Op::BYTES, a.k) <= MAX_SMEM)
+  if (smem_bytes(64, a.d, Op::BYTES, a.k, key_bytes) <= MAX_SMEM)
     return launch_k<64, Op, K, DOTS>(policy, emap, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,19 +1,21 @@
-// tile_select.cuh — the per-tile top-k selection that kernels B1
-// (int8_tile_topk.cu), B4 and B5 (float_tile_topk.cu) share, and the
-// sorted-list merges of B2 (packed_candidate_merge.cu) and of B5 / B7f on
-// the tensor cores (`merge_pair`).
+// tile_select.cuh — the sorted-list merges that the per-tile top-k kernels
+// share: B1, B3e, B7i, B5 and B7f on the tensor cores (tc_tile_topk.cuh),
+// B4, and B5 / B7f over an f32 bank, on the CUDA cores (float_tile_topk.cu),
+// and B2 (packed_candidate_merge.cu).
 //
 // A block keeps, for each of its queries, a list of the k best keys seen so
 // far in shared memory, sorted descending.  Keys are unique within a tile
 // (the row sits in the key's low bits), so a plain `>` orders them fully and
-// ties never arise.  After each staged sub-tile of 64 rows, one warp merges a
-// query's 64 new keys into its list: each lane holds two keys, a ballot keeps
-// those above the current k-th best, and the few survivors are inserted one
-// at a time (~k ln(tile / k) inserts per tile in all).
+// ties never arise.  A kernel's epilogue filters its keys against the list's
+// k-th entry and gathers the few survivors of a sub-tile (at most 64 a
+// query); one warp then merges them into the list (`merge_pair`): one at a
+// time when few, else sorted and merged by rank (~k ln(tile / k) survivors
+// a tile in all).
 //
-// `Key` is int (B1 and B5: the packed score | lane key) or long long (B4:
-// the order-preserving score bits | ~row word).  The caller fills the list
-// with a filler key below every real key before the first merge.
+// `Key` is int (B1, B7i, B5, B7f: the packed score | lane key) or long long
+// (B4, B3e: the order-preserving score bits | ~row word; B2's value |
+// position word).  The caller fills the list with a filler key below every
+// real key before the first merge.
 
 #pragma once
 
@@ -46,28 +48,6 @@ __device__ __forceinline__ void insert_key(Key* L, int k, Key c, int lane) {
     if (i < k) L[i] = nv[j];
   }
   __syncwarp();
-}
-
-// Merge the 64 keys row[0..64) into the list L[0..k).  Called by a whole
-// warp.
-template <typename Key>
-__device__ __forceinline__ void merge_64(const Key* row, Key* L, int k,
-                                         int lane) {
-  const Key a0 = row[lane];
-  const Key a1 = row[lane + 32];
-  const Key thr = L[k - 1];
-  unsigned m0 = __ballot_sync(FULL, a0 > thr);
-  unsigned m1 = __ballot_sync(FULL, a1 > thr);
-  while (m0) {
-    const int src = __ffs(m0) - 1;
-    m0 &= m0 - 1;
-    insert_key(L, k, __shfl_sync(FULL, a0, src), lane);
-  }
-  while (m1) {
-    const int src = __ffs(m1) - 1;
-    m1 &= m1 - 1;
-    insert_key(L, k, __shfl_sync(FULL, a1, src), lane);
-  }
 }
 
 // The 64 keys a (element lane) and b (element lane + 32) of a warp, sorted

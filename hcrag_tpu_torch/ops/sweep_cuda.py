@@ -36,7 +36,8 @@ import torch
 from hcrag_tpu_torch.ops import _build
 from hcrag_tpu_torch.ops.quantize import check_exact_matmul
 from hcrag_tpu_torch.ops.topk_cuda import (
-    _SMEM_LIMIT, LANE_BITS, LANE_MASK, NEG_INF, _check, _require_cuda,
+    _SMEM_LIMIT, CORE_BLOCK_QUERIES, CORE_LOOP_SMEM, LANE_BITS, LANE_MASK, NEG_INF, _check,
+    _require_cuda,
 )
 
 LANES = 128  # output columns per tile (B8a, B8b), lanes of the level-1 pass (B8c)
@@ -140,6 +141,14 @@ def encode_level1_plain(q: torch.Tensor, e: torch.Tensor, tile_n: int = 2048) ->
     return out
 
 
+def sweep_smem_bytes(name: str) -> int:
+    """Shared memory of a B8 kernel: the CUDA-core loop's chunk buffers
+    (csrc/float_dot.cuh) and, per query of the 128-query block, B8a's 128
+    running maxima or B8c's 128 level-1 pairs (m1, m2); none for B8b."""
+    lanes = {"matmul_only_acc": LANES, "encode_level1": 2 * LANES}.get(name, 0)
+    return CORE_LOOP_SMEM + 4 * CORE_BLOCK_QUERIES * lanes
+
+
 def _launch(name: str, q: torch.Tensor, e: torch.Tensor, tile_n: int,
             out: torch.Tensor) -> torch.Tensor:
     """Check the operands of a B8 kernel on the card and launch it into
@@ -152,10 +161,7 @@ def _launch(name: str, q: torch.Tensor, e: torch.Tensor, tile_n: int,
     _check(e, "e", torch.bfloat16, (n, d), dev)
     if qb.data_ptr() % 16 or e.data_ptr() % 16:
         raise ValueError("q and e must start on 16-byte boundaries")
-    # The query block and one staged chunk (csrc/float_dot.cuh), and the
-    # block's running maxima (B8a: 128 per query, B8c: 256).
-    lanes = {"matmul_only_acc": LANES, "encode_level1": 2 * LANES}.get(name, 0)
-    smem = 4 * (64 * (d + 4) + 64 * 68) + 4 * 64 * lanes
+    smem = sweep_smem_bytes(name)
     blocks = -(-(n // tile_n) // max(1, _BLOCK_ROWS // tile_n))
     if smem > _SMEM_LIMIT or blocks > 65535:
         raise ValueError(f"{name}: d={d} needs {smem} bytes of shared memory (limit "

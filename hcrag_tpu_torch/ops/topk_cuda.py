@@ -197,23 +197,46 @@ def _check_tiles(tile_n: int, k: int, super_rows: bool) -> None:
         raise ValueError(f"per-tile k must be in [1, {min(MAX_TILE_K, tile_n)}], got {k}")
 
 
-def tc_smem_bytes(qb: int, d: int, k: int, elem_bytes: int = 2) -> int:
-    """Shared memory of the tensor-core kernel of B1 / B7i (int8,
+def tc_smem_bytes(qb: int, d: int, k: int, elem_bytes: int = 2, key_bytes: int = 4) -> int:
+    """Shared memory of the tensor-core kernel of B1 / B3e / B7i (int8,
     elem_bytes 1) and B5 / B7f (bf16, elem_bytes 2), csrc/tc_tile_topk.cuh,
     with qb queries per block: 1024 bytes of alignment, the query block in
     whole 128-byte chunks of each row, four 64-row chunks with their two
-    mbarriers each, the key buffers, the lists and their counts."""
+    mbarriers each, the key buffers and the lists (key_bytes a key: 8 for
+    B3e, 4 for the others) and their counts."""
     row = -(-d * elem_bytes // 128) * 128
-    return 1024 + qb * row + 4 * (64 * 128 + 16) + 4 * (qb * 64 + qb * k + qb)
+    return (1024 + qb * row + 4 * (64 * 128 + 16) + key_bytes * (qb * 64 + qb * k)
+            + 4 * qb)
 
 
-def tc_block_queries(d: int, k: int, elem_bytes: int = 2) -> int:
+def tc_block_queries(d: int, k: int, elem_bytes: int = 2, key_bytes: int = 4) -> int:
     """The queries per block the tensor-core kernel takes: 128 where they
-    fit shared memory, else 64; 0 where neither fits."""
-    for qb in (128, 64):
-        if tc_smem_bytes(qb, d, k, elem_bytes) <= _SMEM_LIMIT:
+    fit shared memory, else 64; 0 where neither fits.  B3e's 64-bit keys at
+    10 < k <= 16 (per-thread register lists of 16) take 64: a 128-query
+    block's 9 warps leave too few registers for them (its lists hold 10)."""
+    for qb in ((64,) if key_bytes == 8 and 10 < k <= 16 else (128, 64)):
+        if tc_smem_bytes(qb, d, k, elem_bytes, key_bytes) <= _SMEM_LIMIT:
             return qb
     return 0
+
+
+#: The CUDA-core kernel of B4 (and of B5 / B7f over an f32 bank),
+#: csrc/float_tile_topk.cu on csrc/float_dot.cuh: queries per block, rows
+#: per sub-tile, and the bytes of the loop's two chunk buffers (8 columns of
+#: 128 queries and 128 rows, rows padded to 132 floats).
+CORE_BLOCK_QUERIES = 128
+CORE_SUB_ROWS = 128
+CORE_LOOP_SMEM = 2 * 8 * 132 * 2 * 4
+
+
+def core_smem_bytes(k: int, key_bytes: int) -> int:
+    """Shared memory of the CUDA-core kernel: the loop's chunk buffers, then
+    per query a candidate buffer of half a sub-tile and a list of k keys
+    (key_bytes a key: 8 for B4, 4 for B5 / B7f), 64 keys of merge scratch
+    for each of the 8 warps, and a count a query.  It does not depend on d:
+    both operands stream through the chunk buffers."""
+    qb = CORE_BLOCK_QUERIES
+    return CORE_LOOP_SMEM + key_bytes * (qb * (CORE_SUB_ROWS // 2 + k) + 8 * 64) + 4 * qb
 
 
 def _check_int8_depth(d: int) -> None:
@@ -222,10 +245,12 @@ def _check_int8_depth(d: int) -> None:
                          "past which fp32(dot) is no longer exact")
 
 
-def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
-                 super_rows=False):
-    """Check the operands of kernel B1, B3e or B7i and launch it."""
-    _require_cuda(q8, "q8")
+def int8_launch_plan(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
+                     super_rows=False) -> Tuple[int, int]:
+    """The operand rules of kernel B1, B3e or B7i (all on the int8 tensor
+    cores; key_bytes 8 for B3e's 64-bit key, else 4), on tensors of any one
+    device: raises ValueError where the kernel would refuse them, else
+    returns (tiles, shared-memory bytes of a block)."""
     b, d = q8.shape
     n = e8.shape[0]
     dev = q8.device
@@ -241,20 +266,25 @@ def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
     _check_int8_depth(d)
     _check_tiles(tile_n, k, super_rows)
     tiles = -(-n // tile_n)
-    if key_bytes == 4:  # B1 and B7i: the tensor-core kernel
-        if e_scale.data_ptr() % 8 or mask.data_ptr() % 4:
-            raise ValueError(f"{name}: e_scale must lie on an 8-byte boundary and mask "
-                             "on a 4-byte one")
-        smem = tc_smem_bytes(tc_block_queries(d, k, 1) or 64, d, k, 1)
-    else:
-        # B3e: query and row blocks, key buffer and lists, scales and row
-        # flags (csrc/int8_tile_topk.cu's CUDA-core kernel).
-        smem = 128 * (d + 16) + key_bytes * 64 * (68 + k) + 4 * (64 + 64 + 64)
+    if e_scale.data_ptr() % 8 or mask.data_ptr() % 4:
+        raise ValueError(f"{name}: e_scale must lie on an 8-byte boundary and mask "
+                         "on a 4-byte one")
+    smem = tc_smem_bytes(tc_block_queries(d, k, 1, key_bytes) or 64, d, k, 1, key_bytes)
     if smem > _SMEM_LIMIT or tiles > 65535:
         raise ValueError(
             f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
             f"(limit {_SMEM_LIMIT}) or {tiles} tiles exceed 65535"
         )
+    return tiles, smem
+
+
+def _int8_launch(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
+                 super_rows=False):
+    """Check the operands of kernel B1, B3e or B7i and launch it."""
+    _require_cuda(q8, "q8")
+    tiles, _ = int8_launch_plan(name, key_bytes, q8, q_scale, e8, e_scale, mask, k, tile_n,
+                                super_rows)
+    (b, d), n, dev = q8.shape, e8.shape[0], q8.device
     out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
     err = _kernel(name)(
@@ -499,9 +529,14 @@ def float_packed_tile_topk_plain(
                                e.shape[0], k, tile_n, LANE_BITS, q.device)
 
 
-def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
-    """Check the operands of kernel B4, B5 or B7f and launch it."""
-    _require_cuda(q, "q")
+def float_launch_plan(name, key_bytes, q, e, mask, k, tile_n,
+                      super_rows=False) -> Tuple[int, int]:
+    """The operand rules of kernel B4 (key_bytes 8), B5 or B7f (4), on
+    tensors of any one device: raises ValueError where the kernel would
+    refuse them, else returns (tiles, shared-memory bytes of a block).  B5
+    and B7f over a bf16 bank run on the tensor cores; B4 over either bank
+    and B5 / B7f over an f32 one on the CUDA-core kernel, whose shared
+    memory does not depend on d."""
     b, d = q.shape
     n = e.shape[0]
     dev = q.device
@@ -519,14 +554,20 @@ def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
     if key_bytes == 4 and e.dtype == torch.bfloat16:
         smem = tc_smem_bytes(tc_block_queries(d, k) or 64, d, k)
     else:
-        # Query block, staged rows, key buffer and lists
-        # (csrc/float_tile_topk.cu's CUDA-core kernel).
-        smem = 4 * (64 * (d + 4) + 64 * 68) + key_bytes * 64 * (68 + k) + 4 * 64
+        smem = core_smem_bytes(k, key_bytes)
     if smem > _SMEM_LIMIT or tiles > 65535:
         raise ValueError(
             f"{name}: d={d}, k={k} needs {smem} bytes of shared memory "
             f"(limit {_SMEM_LIMIT}) or {tiles} tiles exceed 65535"
         )
+    return tiles, smem
+
+
+def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
+    """Check the operands of kernel B4, B5 or B7f and launch it."""
+    _require_cuda(q, "q")
+    tiles, _ = float_launch_plan(name, key_bytes, q, e, mask, k, tile_n, super_rows)
+    (b, d), n, dev = q.shape, e.shape[0], q.device
     out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
     err = _kernel(name)(

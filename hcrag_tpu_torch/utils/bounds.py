@@ -86,6 +86,10 @@ def table() -> List[Dict]:
         ("B3", "_topk_tile_kernel_int8 (k-pass packed, exact)",
          "paths D1/D2: 10M-row int8 bank, B=2048",
          _select(2048, 1, "int8", 1, -(-N_PAD_10M // TILE) * K, n=N_PAD_10M)),
+        # B4's sums are exact f32 FMAs on the CUDA cores over either bank
+        # (bf16 values widened), so both rows take the f32 rate.
+        ("B4", "_topk_tile_kernel", "path K: bf16 bank, B=512 (f32 sums)",
+         _select(512, 2, "f32", 2, TILES * K)),
         ("B4", "_topk_tile_kernel", "path F1: f32 bank, B=1024",
          _select(b_f1, 4, "f32", 4, TILES * K)),
         ("B5", "_topk_tile_kernel_packed", "path X: bf16 bank, B=256, k=100",

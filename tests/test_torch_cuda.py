@@ -661,3 +661,121 @@ def test_large_k_route_on_card_equals_cpu(cuda, mode):
         torch.set_float32_matmul_precision("highest")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(rt, f), getattr(rg, f), err_msg=f)
+
+
+# Kernel B4 on the register-tiled CUDA-core loop (128 queries x 128-row
+# sub-tiles a block, the filtering epilogue), each case over an f32 and a
+# bf16 bank: (b, n, d, k, tile).  Batches of 1, 63, 129, 130 and 1024
+# (ragged query blocks), d of 64 to 1024 (streamed in 8-column chunks),
+# per-tile k of 1 to 128 (k = 128 at 128-row tiles keeps every row),
+# tiles of 64 to 2048 rows (64: half a sub-tile; 192: a sub-tile and a
+# half), ragged bank ends, a tenth of the rows masked.
+B4_GRID = [(1, 3000, 64, 1, 64), (63, 5000, 384, 10, 2048), (129, 4100, 768, 16, 1024),
+           (1024, 2100, 384, 10, 2048), (129, 3000, 1024, 17, 512),
+           (63, 9000, 64, 100, 2048), (130, 2500, 1024, 128, 2048),
+           (129, 3000, 384, 128, 128), (63, 1000, 768, 1, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k,tile", B4_GRID)
+def test_b4_grid_against_plain(cuda, b, n, d, k, tile, dtype):
+    from hcrag_tpu_torch.testing import check_exact_topk
+
+    q, e, mask = _float_inputs(b, n, d, b + k + d, cuda, dtype)
+    kv, ki = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    pv, pi = topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile)
+    torch.cuda.synchronize()
+    check_exact_topk(kv, ki, pv, pi, q, e, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k,tile", B4_GRID)
+def test_b4_grid_bit_equal_on_exact_dots(cuda, b, n, d, k, tile, dtype):
+    """Multiples of 1/64: every dot is exact in any order, and many tie, so
+    the kernel equals its plain version bit for bit, ties to the lowest
+    row."""
+    q, e, mask = _dyadic_inputs(b, n, d, b + k + d + 1, cuda, dtype)
+    out = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,tile", [(1, 64), (16, 512), (17, 2048), (128, 2048)])
+def test_b4_filter_leaving_fewer_than_k_rows(cuda, k, tile, dtype):
+    """Only the first k // 2 rows of each tile pass the filter (none at
+    k = 1), the last tile's none: every further slot is (-1e30, the tile's
+    first row), bit-equal to the plain version."""
+    n = 5000
+    q, e, _ = _dyadic_inputs(129, n, 384, k + tile, cuda, dtype)
+    r = torch.arange(n, device=cuda)
+    mask = (r % tile < k // 2) & (r < (n - 1) // tile * tile)
+    out = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile))
+    kv, ki = out
+    base = (torch.arange(-(-n // tile), device=cuda) * tile).to(torch.int32)
+    assert bool((kv[:, :, k // 2:] == -1e30).all())
+    assert torch.equal(ki[:, :, k // 2:], base[None, :, None].expand_as(ki[:, :, k // 2:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_signed_zeros_and_ties(cuda, dtype):
+    """Rows of +0.0 and of -0.0 between copies of one row v, queries -v
+    (below zero on v) and zero queries: +0.0 and -0.0 dots tie, so each
+    tile keeps its lowest zero rows (every row for a zero query), with the
+    value +0.0; bit-equal to the plain version."""
+    n, d, k, tile = 3000, 128, 10, 1024
+    v = torch.from_numpy(np.random.default_rng(5).integers(1, 7, d) / 64).to(cuda, dtype)
+    e = v.repeat(n, 1)
+    r = torch.arange(n, device=cuda)
+    e[r % 3 == 0] = 0.0
+    e[r % 3 == 1] = -0.0
+    q = torch.cat([-v.repeat(6, 1), torch.zeros(3, d, device=cuda, dtype=dtype)])
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    out = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile))
+    kv, ki = out
+    assert bool((kv == 0).all()) and not bool(torch.signbit(kv).any())
+    tiles = -(-n // tile)
+    zero_rows = torch.stack([r[(r // tile == t) & (r % 3 != 2)][:k] for t in range(tiles)])
+    all_rows = torch.arange(tiles, device=cuda)[:, None] * tile + torch.arange(k, device=cuda)
+    assert torch.equal(ki[:6], zero_rows.to(torch.int32).expand(6, tiles, k))
+    assert torch.equal(ki[6:], all_rows.to(torch.int32).expand(3, tiles, k))
+
+
+# B3e on the int8 tensor cores with its 64-bit key: B1's edge shapes (k 1 to
+# 128: 10-key register lists in 128-query blocks up to k = 10, 16-key ones in
+# 64-query blocks up to 16, shared-memory lists past that), plus the widest
+# rows (d = 1040) at both list kinds, and k = 100.
+B3E_GRID = INT8_TC_TILE + [(65, 3000, 1040, 10, 2048), (130, 2500, 1040, 128, 2048),
+                           (129, 5000, 384, 100, 2048), (2048, 2100, 384, 11, 2048)]
+
+
+@pytest.mark.parametrize("b,n,d,k,tile", B3E_GRID)
+def test_b3e_grid_bit_equal(cuda, b, n, d, k, tile):
+    args = _b1_inputs(b, n, d, seed=b + k + d, dev=cuda)
+    out = topk_cuda.int8_exact_tile_topk(*args, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.int8_exact_tile_topk_plain(*args, k, tile_n=tile))
+
+
+@pytest.mark.parametrize("k,tile", [(10, 2048), (16, 1024), (17, 2048), (128, 2048)])
+def test_b3e_filter_and_ties(cuda, k, tile):
+    """A filter that leaves 3 rows in the first tile: its other slots are
+    (-1e30, 0); all-tied rows: every tile gives its lowest rows.  Both
+    bit-equal to the plain version, at each kind of list."""
+    q8, qs, e8, es, mask = _b1_inputs(130, 9000, 384, seed=k + tile, dev=cuda)
+    mask[:tile] = False
+    mask[[5, 700, 1000]] = True
+    out = topk_cuda.int8_exact_tile_topk(q8, qs, e8, es, mask, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, k,
+                                                          tile_n=tile))
+    got = torch.sort(out[1][:, 0, :3], dim=1).values
+    assert torch.equal(got, torch.tensor([5, 700, 1000], device=cuda, dtype=torch.int32)
+                       .expand(130, 3))
+    assert bool((out[1][:, 0, 3:] == 0).all()) and bool((out[0][:, 0, 3:] == -1e30).all())
+    args = _b1_inputs(65, 9000, 128, seed=k, dev=cuda, tied=True)
+    args = args[:4] + (torch.ones_like(args[4]),)
+    out = topk_cuda.int8_exact_tile_topk(*args, k, tile_n=tile)
+    _bit_equal(out, topk_cuda.int8_exact_tile_topk_plain(*args, k, tile_n=tile))
+    tiles = -(-9000 // tile)
+    want = torch.arange(tiles, device=cuda)[:, None] * tile + torch.arange(k, device=cuda)
+    assert torch.equal(out[1], want.expand(65, tiles, k).to(torch.int32))
