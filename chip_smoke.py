@@ -36,8 +36,13 @@ last line:
                and by `testing.py` on normal inputs at the same shapes; the
                tensor-core loop's largest |dot - float64 dot| against
                `testing.TC_DOT_ERROR`; B6 within
-               1e-5 at B=256 x 8192 nodes (both reductions), one query x
-               8192 nodes and a ragged 8191 nodes; B7i and B7f (f32 and
+               1e-5 in both regimes: the byte-bound kernel at query blocks
+               of 1-16 (one query x 2048-32768 nodes, ragged node counts,
+               scalar rows at d = 383, d = 1040) and the tiled CUDA-core
+               loop (256 x 8192 nodes, both reductions, 17 and 300
+               queries), and the shapes the loop refuses (d = 383, W = 210)
+               at 16 queries a block; then both regimes' device times at
+               17-256 queries (the route rule's data); B7i and B7f (f32 and
                bf16 banks; inputs whose dots are exact in any order) bit for
                bit at 2048-, 4096- and 8192-row supertiles with masked rows,
                a ragged last supertile, ragged queries, k_sub 1, 10, 100 and
@@ -60,6 +65,15 @@ last line:
                `search_by_category` (every 500th row re-typed) and
                `retrieve_batch_device` at B=1024, each of which must launch
                B4;
+     path M  — the MiniLM query encoder on the card over F1's engine: the
+               distilled weights (`tools/minilm_distilled*`) loaded and
+               attached (`attach_device_encoder`), 1024 texts of the
+               committed vocabulary encoded at max_len 64 and 192 (forward
+               ms per batch by CUDA events, texts/s, peak memory; the card
+               within 1e-4 of the CPU on 8 texts), their embeddings through
+               `query_batch` (one B4 launch), `process_query` on text, and
+               the encoder confidence over a 100,000-row slice (the auto
+               rule's limit), on the host clock;
      path X  — the same rows with a degree-8 graph, `exact_rescore=32`,
                top_k=100, depth 3, B=256 (the JAX repo's expansion-heavy
                deployment): B5 at per-tile k = 100, B2 over 489 x 100 -> 100;
@@ -74,10 +88,16 @@ last line:
   7. path D3 — the same rows rounded to bf16 (as `bench.py` hands the index
                in its BENCH_INT8_MODE="" mode), `quantize_int8=True,
                int8_rescore=32`: B1, B2, the rescore from bf16 rows, B=8192;
+     refresh — the int8 + f32 rescore engine over the same rows, 10,000
+               rows appended, `refresh_index` (seconds); queries equal to
+               appended rows must return them first;
   8. path R  — `batch_isRelevant` over 8192 nodes (D=384) for the six
                multi-metric strategies, offline LLM client: one launch of
                B6 per call, scores against the CPU's plain route, host time
-               of each call beside the unfused route on the card; then both
+               of each call beside the unfused route on the card; B6's
+               device time (CUDA-graph replays) at 1 x 2048, 8192 and 32768
+               nodes and at the JAX ablation's 256 x 8192 (with and without
+               the llm column), beside its bound and the dots alone; then both
                routes at 512, 2048, 8192 and 32768 nodes, ten calls each in
                turns, with the device's busy share of one call of each;
   9. path D1 — a 10,000,000 x 384 index, `quantize_int8=True,
@@ -148,6 +168,8 @@ R_ROUTE_NODES = (512, 2048, 8192, 32768)  # path R's route data
 SUPER_FLOAT, SUPER_INT8 = 8, 4  # pallas_super of path S1, of paths S2 and S3
 X_TOP_K, X_DEPTH, X_BATCH, X_DEGREE = 100, 3, 256, 8  # path X
 LARGE_K, LARGE_K_BATCH = 256, 64  # paths L1 and L2
+M_TEXTS, M_CONF_ROWS = 1024, 100_000  # path M; the confidence's auto-rule limit
+REFRESH_ROWS = 10_000  # rows the refresh phase appends
 LARGE_K_MIN_RECALL_INT8 = 0.95
 
 
@@ -664,16 +686,16 @@ def phase_sweep_kernels(dev, err: dict) -> None:
             + ", ".join(f"{name} {x:.3g}" for name, x in errs.items()))
 
 
-def b6_inputs(b, n, seed, dev, w=8):
+def b6_inputs(b, n, seed, dev, w=8, d=DIM):
     """Operands of kernel B6: normalized f32 rows, random bit words (every
     other query and every 7th node without entities), intents, types, the
     weights, the priority table and an llm column."""
     from hcrag_tpu_torch.core.types import PRIORITY_MATRIX
 
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((b, DIM)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    e = rng.standard_normal((n, DIM)).astype(np.float32)
+    e = rng.standard_normal((n, d)).astype(np.float32)
     e /= np.linalg.norm(e, axis=1, keepdims=True)
     qb = (rng.integers(0, 2**32, (b, w), dtype=np.uint32)
           & rng.integers(0, 2**32, (b, w), dtype=np.uint32))
@@ -690,27 +712,62 @@ def b6_inputs(b, n, seed, dev, w=8):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
-def phase_scoring_kernels(dev, err: dict) -> None:
+# B6's kernel phase: (b, n, d, w, reduction, llm).  Up to 16 queries the
+# byte-bound kernel (a) at query blocks of 1-16, float4 rows where d % 4 ==
+# 0 and scalars at d = 383; past 16 the tiled CUDA-core loop (b), with
+# ragged query and node blocks; d = 383, and W = 210 (past the loop's shared
+# memory), send 40 queries to (a) at 16 a block.
+B6_CASES = ((256, R_NODES, DIM, 8, 0, True), (256, R_NODES, DIM, 8, 1, True),
+            (1, R_NODES, DIM, 8, 0, True), (1, R_NODES - 1, DIM, 8, 1, False),
+            (3, R_NODES - 1, DIM, 8, 0, False), (1, 32768, DIM, 8, 0, True),
+            (1, 2048, DIM, 1, 1, True), (8, 4097, DIM, 8, 0, True),
+            (16, 3001, 1040, 8, 1, True), (2, 999, 383, 8, 0, True),
+            (40, 999, 383, 8, 1, False), (17, 700, DIM, 1, 1, True),
+            (300, 1001, DIM, 8, 0, True), (40, 500, DIM, 210, 0, True))
+
+
+def phase_scoring_kernels(dev, err: dict, card: str) -> None:
     """B6 against its plain version (within 1e-5: the dot's f32 sum runs in
-    another order); updates the max abs error in `err`."""
+    another order) in both regimes; updates the max abs error in `err`.
+    Then both regimes at the same shapes (the plan's choice and the other),
+    device time from CUDA-graph replays: the data behind the route rule."""
     from hcrag_tpu_torch.ops import scoring_cuda as sc
+    from hcrag_tpu_torch.utils.timing import graph_ms
 
     err["batch_relevance"] = 0.0
-    for b, n, reduction, llm in ((256, R_NODES, 0, True), (256, R_NODES, 1, True),
-                                 (1, R_NODES, 0, True), (1, R_NODES - 1, 1, False),
-                                 (3, R_NODES - 1, 0, False)):
-        args = b6_inputs(b, n, b + n + reduction, dev)
+    for b, n, d, w, reduction, llm in B6_CASES:
+        args = b6_inputs(b, n, b + n + reduction, dev, w=w, d=d)
         if not llm:
             args[-1] = None
+        plan = sc.launch_plan(args[0], args[4], w)
         got = sc.batch_relevance(*args, reduction=reduction)
         want = sc.batch_relevance_plain(*args, reduction=reduction)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         if got.shape != (b, n) or not e <= 1e-5:
-            raise AssertionError(f"B6 b={b} n={n}: max |err| {e} > 1e-5")
+            raise AssertionError(f"B6 b={b} n={n} d={d} w={w}: max |err| {e} > 1e-5")
         err["batch_relevance"] = max(err["batch_relevance"], e)
-        log(f"  B6 b={b} n={n} d={DIM} w=8 reduction={reduction} llm={llm}: "
+        log(f"  B6 b={b} n={n} d={d} w={w} reduction={reduction} llm={llm}: regime "
+            f"{plan.regime} ({plan.queries} queries a block, float4 rows {plan.vec}): "
             f"max |err| {e:.3g}")
+    kernel = sc._kernel()
+    for b, n in ((17, R_NODES), (64, R_NODES), (128, R_NODES), (256, 2048), (256, R_NODES),
+                 (256, 32768)):
+        args = b6_inputs(b, n, 7, dev)
+        out = torch.empty((b, n), dtype=torch.float32, device=dev)
+        ptrs = [args[i].data_ptr() for i in (0, 1, 2, 3, 8, 9, 4, 5, 6, 7, 10)]
+        ms = {}
+        for qpb in (16, sc.TILED_QUERY_BLOCK):
+            # The stream is read at each call: a graph captures on its own.
+            call = (lambda qpb=qpb: kernel(*ptrs, out.data_ptr(), b, n, DIM, 8, 0, qpb,
+                                            int(qpb == 16),
+                                            torch.cuda.current_stream(dev).cuda_stream))
+            if call():
+                raise AssertionError(f"B6 b={b} n={n} at {qpb} queries a block: launch failed")
+            ms[qpb] = graph_ms(call, calls=10, replays=5)
+        log(f"  B6 regimes at b={b} n={n} d={DIM} (device time, CUDA graph): (a) at 16 "
+            f"queries a block {ms[16]:.4f} ms, (b) tiled {ms[128]:.4f} ms; the plan "
+            f"takes {sc.launch_plan(args[0], args[4], 8).regime}; {card}")
 
 
 def brute_force_top_k(emb: np.ndarray, queries: np.ndarray, dev,
@@ -877,9 +934,12 @@ class Record:
         self.launches = {}  # path -> name -> count
 
     def kernel(self, name, path, ms, plain_ms, bound, library_ms=None, dots_alone_ms=None):
+        """A kernel's numbers at a path's shapes; at a shape no path runs
+        (`path` not among the driven paths) its launches are None."""
         bound_ms_, by = bound
         self.rows[name][path] = dict(
-            launches=self.launches[path][name], ms=ms, plain_ms=plain_ms,
+            launches=self.launches[path][name] if path in self.launches else None,
+            ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms_, bound_by=by, library_ms=library_ms)
         if dots_alone_ms is not None:  # a yardstick: the dots alone, not the same function
             self.rows[name][path]["dots_alone_ms"] = dots_alone_ms
@@ -1367,6 +1427,142 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
         f"{dots_ms:.3f} ms; launches on the path {rec.launches['F1']['float_tile_topk']}; "
         f"{card})")
     rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
+    return engine
+
+
+def vocab_texts(words, n: int, seed: int, lo: int = 2, hi: int = 150):
+    """`n` texts of lo..hi words drawn from the committed vocabulary."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, size=k)) for k in rng.integers(lo, hi, n)]
+
+
+def path_m(engine, index, graph, dev, card, rec) -> None:
+    """The MiniLM query encoder on the card over F1's engine: the distilled
+    weights loaded and attached; 1024 texts encoded at max_len 64 and 192
+    (the forward timed with CUDA events, tokenization on the host clock),
+    the card against the CPU on 8 texts; their embeddings through
+    `query_batch` (one B4 launch); `process_query` on text; then the
+    encoder confidence (`with_confidence`'s auto rule) over a 100,000-row
+    slice of the index."""
+    from hcrag_tpu_torch.core.dense_index import DenseIndex
+    from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    t0 = time.time()
+    enc = load_distilled_embedder()
+    if enc is None or enc.device.type != "cuda":
+        raise AssertionError("M: the distilled encoder did not load onto the card")
+    engine.attach_device_encoder(enc)
+    log(f"[M] distilled MiniLM (vocab {enc.cfg.vocab_size}, {enc.cfg.num_layers} layers, "
+        f"hidden {enc.dim}) on the card in {time.time() - t0:.1f} s (host set-up)")
+    words = [w for w in enc.tokenizer.vocab if w.isalpha()]
+    texts = vocab_texts(words, M_TEXTS, seed=21)
+    cpu = load_distilled_embedder(device="cpu")
+    embs = {}
+    for max_len in (64, 192):
+        t0 = time.perf_counter()
+        ids, mask = enc.tokenizer.encode_batch(texts, max_len=max_len)
+        tok_s = time.perf_counter() - t0
+        d_ids = torch.from_numpy(ids).to(dev, torch.int64)
+        d_mask = torch.from_numpy(mask).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: enc.model(d_ids, d_mask), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        embs[max_len] = enc.encode(texts, max_len=max_len)
+        encode_s = time.perf_counter() - t0
+        e = embs[max_len]
+        if e.shape != (M_TEXTS, DIM) or not np.isfinite(e).all() or \
+                np.abs(np.linalg.norm(e, axis=1) - 1).max() > 1e-5:
+            raise AssertionError(f"M: bad embeddings at max_len {max_len}")
+        diff = float(np.abs(enc.encode(texts[:8], max_len=max_len)
+                            - cpu.encode(texts[:8], max_len=max_len)).max())
+        if not diff <= 1e-4:
+            raise AssertionError(f"M: card and CPU encoders differ by {diff} > 1e-4")
+        log(f"[M] encode {M_TEXTS} texts at max_len {max_len} ({int(mask.sum())} tokens): "
+            f"forward {fwd_ms:.3f} ms per batch (CUDA events), "
+            f"{M_TEXTS / fwd_ms * 1e3:.0f} texts/s; tokenization {tok_s * 1e3:.1f} ms "
+            f"(host); encode() {encode_s * 1e3:.1f} ms (host clock); peak device memory "
+            f"{peak:.2f} GiB; card vs CPU on 8 texts max |diff| {diff:.3g} (gate 1e-4); "
+            f"{card}")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = engine.query_batch(embs[64], top_k=TOP_K)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    rec.launches["M"] = read_counts()
+    if rec.launches["M"]["float_tile_topk"] != 1:
+        raise AssertionError(f"M: query_batch launched B4 {rec.launches['M']['float_tile_topk']}"
+                             " times, not once")
+    check_result(res, M_TEXTS, N_ROWS)
+    log(f"[M] query_batch of the {M_TEXTS} embeddings (max_len 64): {step_s * 1e3:.1f} ms "
+        f"(host clock), launches {rec.launches['M']}")
+    for text in ("red mountain bike frame", texts[5]):
+        t0 = time.perf_counter()
+        out = engine.process_query(text, top_k=TOP_K)
+        dt = time.perf_counter() - t0
+        if "encoder_confidence" in out or out["query_embedding"].shape != (DIM,):
+            raise AssertionError("M: process_query over 1M rows gave a confidence or a bad "
+                                 "embedding")
+        log(f"[M] process_query({text[:40]!r}): {dt * 1e3:.1f} ms (host clock); "
+            f"{out['summary']}")
+    # The auto rule's limit: confidence over at most 100,000 rows.
+    rows = slice(0, M_CONF_ROWS)
+    part = DenseIndex(emb=index.emb[rows], type_ids=index.type_ids[rows],
+                      entity_bits=index.entity_bits[rows],
+                      entity_counts=index.entity_counts[rows],
+                      graph_ids=index.graph_ids[rows], metadata=index.metadata[rows],
+                      texts=index.texts[rows], vocab=index.vocab)
+    # No graph: its nodes link rows past the slice.
+    small = QueryEngine(part, None, embedder=enc)
+    for text in ("red mountain bike frame", texts[5]):
+        t0 = time.perf_counter()
+        out = small.process_query(text, top_k=TOP_K)
+        dt = time.perf_counter() - t0
+        conf = out.get("encoder_confidence")
+        if conf is None or not all(np.isfinite(v) for v in conf.values()) or \
+                not 0.0 <= conf["score"] <= 1.0:
+            raise AssertionError(f"M: encoder confidence over {M_CONF_ROWS} rows: {conf}")
+        log(f"[M] process_query({text[:40]!r}) over {M_CONF_ROWS} rows with the encoder "
+            f"confidence (auto rule): {dt * 1e3:.1f} ms (host clock); confidence "
+            f"{json.dumps({k: round(v, 6) for k, v in conf.items()})}")
+
+
+def path_refresh(index, graph, dev, card, rec) -> None:
+    """`refresh_index` at scale: the int8 + f32 rescore engine over the 1M
+    rows, 10,000 rows appended to the index, the engine refreshed (the
+    int8 banks quantized again on the card); a query equal to an appended
+    row must return that row first."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    opts = dict(quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True)
+    engine = QueryEngine(index, graph, device=dev, ell_max_degree=8, **opts)
+    n0, bank0 = engine._n_rows, engine._n_bank
+    rng = np.random.default_rng(31)
+    new = rng.standard_normal((REFRESH_ROWS, DIM)).astype(np.float32)
+    meta = [{"id": f"new_{i}", "type": "database_table", "table_name": "Synthetic",
+             "row_index": n0 + i} for i in range(REFRESH_ROWS)]
+    t0 = time.perf_counter()
+    index.append(new, meta, [f"appended row {i}" for i in range(REFRESH_ROWS)])
+    append_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.refresh_index()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    picks = np.array([0, 1, REFRESH_ROWS // 2, REFRESH_ROWS - 1])
+    q = np.concatenate([new[picks], rng.standard_normal((60, DIM))]).astype(np.float32)
+    zero_counts()
+    res = engine.query_batch(q, top_k=TOP_K)
+    rec.launches["refresh"] = read_counts()
+    check_result(res, len(q), n0 + REFRESH_ROWS)
+    if res.top_indices[:len(picks), 0].tolist() != (n0 + picks).tolist():
+        raise AssertionError(f"refresh: appended rows {n0 + picks} came back as "
+                             f"{res.top_indices[:len(picks), 0]}")
+    log(f"[refresh] {REFRESH_ROWS} rows appended to {n0} in {append_s:.2f} s (host), "
+        f"refresh_index {refresh_s:.2f} s (host clock, to the card's last write); bank "
+        f"{bank0} -> {engine._n_bank} rows; queries on 4 appended rows found each first; "
+        f"launches {rec.launches['refresh']}; {card}")
 
 
 def path_d3(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1453,7 +1649,6 @@ def path_r(dev, card, rec) -> None:
     from hcrag_tpu_torch.ops import scoring_cuda as sc
     from hcrag_tpu_torch.pipeline import isrelevant as isr
     from hcrag_tpu_torch.pipeline.llm import LLMClient
-    from hcrag_tpu_torch.utils.bounds import scoring_work
 
     t0 = time.time()
     query, nodes = r_inputs(R_NODES)
@@ -1515,23 +1710,42 @@ def path_r(dev, card, rec) -> None:
     e = float((sc.batch_relevance(*args, reduction=reduction)
                - sc.batch_relevance_plain(*args, reduction=reduction)).abs().max())
     rec.err("batch_relevance", e)
-    ms = cuda_ms(lambda: sc.batch_relevance(*args, reduction=reduction), reps=50)
-    plain_ms = cuda_ms(lambda: sc.batch_relevance_plain(*args, reduction=reduction), reps=20)
-    w = args[1].shape[1]
-    work = scoring_work(1, R_NODES, DIM, w, llm=True)
+    b6_at(args, reduction, "R", "B=1 N=8192 (the path's operands)", card, rec)
+    # B6 at path R's route sizes and at the JAX ablation's shape
+    # (benchmarks/scoring_ablation.py: 256 queries x 8192 nodes).
+    for label, b, n, llm_on in (("R@2048", 1, 2048, True), ("R@32768", 1, 32768, True),
+                                ("ablation", 256, R_NODES, True),
+                                ("ablation, no llm", 256, R_NODES, False)):
+        big = b6_inputs(b, n, 99 + n, dev)
+        if not llm_on:
+            big[-1] = None
+        b6_at(big, 0, label, f"B={b} N={n} llm={llm_on}", card, rec)
+
+
+def b6_at(args, reduction, label, shape, card, rec) -> None:
+    """B6's device time on `args` (CUDA-graph replays: at b = 1 a launch
+    takes less time than the host takes to issue it), its plain version's
+    (CUDA events), its bound, and the dots alone (one f32 product of the
+    same operands, TF32 off: not the same function), recorded under
+    `label`."""
+    from hcrag_tpu_torch.ops import scoring_cuda as sc
+    from hcrag_tpu_torch.utils.bounds import scoring_work
+    from hcrag_tpu_torch.utils.timing import graph_ms
+
+    q, e = args[0], args[4]
+    b, n, w = q.shape[0], e.shape[0], args[1].shape[1]
+    ms = graph_ms(lambda: sc.batch_relevance(*args, reduction=reduction), calls=20, replays=10)
+    plain_ms = cuda_ms(lambda: sc.batch_relevance_plain(*args, reduction=reduction), reps=5)
+    dots = (lambda: torch.mv(e, q[0])) if b == 1 else (lambda: torch.matmul(q, e.T))
+    dots_ms = graph_ms(dots, calls=20, replays=10)
+    work = scoring_work(b, n, q.shape[1], w, llm=args[10] is not None)
     bound = bound_ms(work["ops"], "f32", work["bytes"])
-    log(f"[R] B6 batch_relevance B=1 N={R_NODES} W={w}: {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; max |err| {e:.3g}; "
-        f"{card})")
-    rec.kernel("batch_relevance", "R", ms, plain_ms, bound)
-    big = b6_inputs(256, R_NODES, 99, dev)
-    ms256 = cuda_ms(lambda: sc.batch_relevance(*big, reduction=0), reps=20)
-    plain256 = cuda_ms(lambda: sc.batch_relevance_plain(*big, reduction=0), reps=5)
-    work = scoring_work(256, R_NODES, DIM, 8, llm=True)
-    b256 = bound_ms(work["ops"], "f32", work["bytes"])
-    log(f"[R] B6 batch_relevance B=256 N={R_NODES} W=8 (the kernel phase's shape): "
-        f"{ms256:.4f} ms (plain {plain256:.4f} ms, bound {b256[0]:.4f} ms by {b256[1]}; "
-        f"{card})")
+    plan = sc.launch_plan(q, e, w)
+    log(f"[R] B6 batch_relevance {shape} W={w} ({plan.regime}, {plan.queries} queries a "
+        f"block): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+        f"{bound[1]}, {100 * bound[0] / ms:.0f}% of it; dots alone, not the same function: "
+        f"{'torch.mv' if b == 1 else 'torch.matmul'} in f32 {dots_ms:.4f} ms; {card})")
+    rec.kernel("batch_relevance", label, ms, plain_ms, bound, dots_alone_ms=dots_ms)
 
 
 def path_d1(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1797,7 +2011,7 @@ def main() -> int:
     max_err = phase_kernels(dev)
     max_err.update(float_tile_topk=0.0, float_packed_tile_topk=0.0)
     phase_float_kernels(dev, max_err)
-    phase_scoring_kernels(dev, max_err)
+    phase_scoring_kernels(dev, max_err, card)
     phase_super_kernels(dev, max_err)
     phase_sweep_kernels(dev, max_err)
     rec = Record(max_err)
@@ -1820,14 +2034,18 @@ def main() -> int:
         free(label)
     f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
     f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
-    path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)
-    free("F1")
+    engine = path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)
+    path_m(engine, index, graph, dev, card, rec)
+    del engine
+    free("M")
     path_x(index, queries, dev, card, rec)
     free("X")
     path_large_k(index, graph, queries, dev, card, rec)
     round_to_bf16(index.emb)
     path_d3(index, graph, queries, ref, dev, card, rec)
     free("D3")
+    path_refresh(index, graph, dev, card, rec)
+    free("refresh")
     del index, graph
 
     # the kernel sweep over its own bank ------------------------------------

@@ -75,3 +75,10 @@ class EntityVocab:
         for i, entities in enumerate(entity_lists):
             bits[i], oov[i] = self.encode(entities)
         return bits, oov
+
+    def to_dict(self) -> Dict[str, int]:
+        return dict(self.entity_to_id)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, int]) -> "EntityVocab":
+        return cls(entity_to_id={k: int(v) for k, v in d.items()})

@@ -5,8 +5,8 @@ Counterpart of `HashingEmbedder`, `embedder_from_index` and
 path (the JAX package's native C++ tokenizer computes the same features).
 `HashingEmbedder` is a deterministic feature-hashed bag of words + bigrams,
 L2-normalized, with optional IDF weights.  An index built from MiniLM
-vectors needs the MiniLM encoder, which is not ported yet: asking for its
-embedder raises rather than embedding queries into another space.
+vectors gets the distilled MiniLM encoder (`models/minilm.py`), on the
+caller's device, so that query text embeds into the rows' space.
 """
 
 from __future__ import annotations
@@ -102,18 +102,20 @@ class HashingEmbedder:
         return emb
 
 
-def embedder_from_index(index) -> HashingEmbedder:
-    """The embedder an index was built with: its persisted hashing state,
-    else an unfitted default.  An index of MiniLM vectors raises: its
-    encoder is not ported yet (ROADMAP.md A8)."""
+def embedder_from_index(index, device=None):
+    """The embedder an index was built with: its persisted hashing state;
+    for an index of MiniLM vectors (`generation_info["model_name"]`), the
+    distilled MiniLM encoder on `device` (CUDA unless named) where its files
+    exist and its width matches; else an unfitted hashing embedder."""
     state = index.generation_info.get("embedder_state")
     if state and state.get("type") == "hashing":
         return HashingEmbedder.from_state(state)
     if "minilm" in str(index.generation_info.get("model_name", "")).lower():
-        raise NotImplementedError(
-            "this index holds MiniLM vectors; the MiniLM query encoder is "
-            "not ported yet (ROADMAP.md A8)"
-        )
+        from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+
+        distilled = load_distilled_embedder(device=device)
+        if distilled is not None and distilled.dim == index.dim:
+            return distilled
     return default_embedder(index.dim)
 
 

@@ -12,13 +12,16 @@ batch of one.
 
 The wrapper launches the kernel for CUDA tensors (or raises) and runs its
 plain PyTorch version, defined beside it, for CPU tensors; it counts its
-launches in `batch_relevance.launches`.
+launches in `batch_relevance.launches`.  `launch_plan` picks the kernel's
+regime from the shapes (csrc/batch_relevance.cu): up to 16 queries, the
+byte-bound kernel with the smallest query block that covers them; more, the
+register-tiled CUDA-core loop, unless its operand rules refuse the shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,16 +29,66 @@ from hcrag_tpu_torch.core.types import NUM_INTENTS, NUM_NODE_TYPES, REDUCE_MAX
 from hcrag_tpu_torch.ops import _build
 from hcrag_tpu_torch.ops.quantize import check_exact_matmul
 from hcrag_tpu_torch.ops.scoring import popcount_words
-from hcrag_tpu_torch.ops.topk_cuda import _SMEM_LIMIT, _check
+from hcrag_tpu_torch.ops.topk_cuda import (
+    _SMEM_LIMIT,
+    CORE_BLOCK_QUERIES,
+    CORE_LOOP_SMEM,
+    _check,
+)
 
-_QB = 16  # queries per block (csrc/batch_relevance.cu)
+#: The query blocks of the byte-bound kernel (a), and of the tiled one (b),
+#: which runs the CUDA-core loop of B4.
+FEW_QUERY_BLOCKS = (1, 2, 4, 8, 16)
+TILED_QUERY_BLOCK = CORE_BLOCK_QUERIES
+_TABLES = 4 + NUM_INTENTS * NUM_NODE_TYPES  # static shared floats: weights, priority
+SIGNATURE = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 def _kernel():
     fn = _build.load("batch_relevance").batch_relevance
-    fn.argtypes = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+    fn.argtypes = SIGNATURE
     fn.restype = ctypes.c_int
     return fn
+
+
+class LaunchPlan(NamedTuple):
+    """How kernel B6 runs a shape: `queries` per block (1-16: the
+    byte-bound kernel (a); 128: the tiled loop (b)), `vec` whether (a)
+    reads node rows as float4, and the block's dynamic shared memory."""
+
+    queries: int
+    vec: bool
+    smem: int
+
+    @property
+    def regime(self) -> str:
+        return "tiled" if self.queries == TILED_QUERY_BLOCK else "few"
+
+
+def _few_smem(qn: int, d: int) -> int:
+    """Kernel (a)'s shared memory: the query rows, reused for the dots of
+    its 32 node rows."""
+    return 4 * qn * max(d, 32)
+
+
+def launch_plan(q_emb: torch.Tensor, node_emb: torch.Tensor, w: int) -> LaunchPlan:
+    """The regime of kernel B6 for these operands (any device; the CUDA
+    wrapper launches what it returns).  More than 16 queries take the tiled
+    loop where its rules allow (d % 8 == 0, both float operands on 16-byte
+    boundaries, the bit words of 128 queries and 128 nodes in shared
+    memory); otherwise the byte-bound kernel at the smallest query block in
+    FEW_QUERY_BLOCKS that covers min(b, 16).  Raises ValueError where
+    neither fits shared memory."""
+    b, d = q_emb.shape
+    aligned = q_emb.data_ptr() % 16 == 0 and node_emb.data_ptr() % 16 == 0
+    tiled_smem = CORE_LOOP_SMEM + 8 * TILED_QUERY_BLOCK * ((w | 1) + 2)
+    if b > 16 and d % 8 == 0 and aligned and tiled_smem + 4 * _TABLES <= _SMEM_LIMIT:
+        return LaunchPlan(TILED_QUERY_BLOCK, False, tiled_smem)
+    qn = next(x for x in FEW_QUERY_BLOCKS if x >= min(b, 16))
+    smem = _few_smem(qn, d)
+    if smem + 4 * _TABLES > _SMEM_LIMIT:
+        raise ValueError(f"d={d}: the query block does not fit shared memory")
+    return LaunchPlan(qn, d % 4 == 0 and node_emb.data_ptr() % 16 == 0, smem)
 
 
 def batch_relevance_plain(
@@ -135,8 +188,7 @@ def batch_relevance(
         raise ValueError("batch_relevance needs a query, a node and a bit word")
     if reduction not in (0, 1):
         raise ValueError(f"reduction must be 0 or 1, got {reduction}")
-    if 4 * (_QB * d + 4 + NUM_INTENTS * NUM_NODE_TYPES) > _SMEM_LIMIT:
-        raise ValueError(f"d={d}: the query block does not fit shared memory")
+    plan = launch_plan(q_emb, node_emb, w)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = _kernel()(
         q_emb.data_ptr(), q_bits.data_ptr(), q_counts.data_ptr(),
@@ -144,7 +196,7 @@ def batch_relevance(
         node_emb.data_ptr(), node_bits.data_ptr(), node_counts.data_ptr(),
         node_type_ids.data_ptr(),
         None if llm_scores is None else llm_scores.data_ptr(),
-        out.data_ptr(), b, n, d, w, reduction,
+        out.data_ptr(), b, n, d, w, reduction, plan.queries, int(plan.vec),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

@@ -30,8 +30,12 @@ priority, weighted reduction); the ELL graph expansion to the requested
 depth, its second and later hops over the ANNOTATION-only table
 (`ops/expand.expand_batch_early_exit`); the scoring of the expanded nodes
 and the 0.7/0.3 blend of relevance and similarity.  `retrieve_batch_device`
-runs the selection alone; `find_similar_content`, `process_query` and
-`search_by_category` are the reference-shaped host API over the step.
+runs the selection alone; `find_similar_content`, `process_query` (with the
+encoder confidence), `search_by_category`, `suggest_queries`,
+`query_similar_products` and `hybrid_search` are the reference-shaped host
+API over the step.  `refresh_index` uploads the index again after
+`DenseIndex.append`; `attach_device_encoder` makes text queries run the
+MiniLM encoder on the engine's device.
 
 The selections are the CUDA kernels of `ops/topk_cuda.py`.  Past 128
 candidates (top_k or the rescore's oversample), which the kernels' per-tile
@@ -63,10 +67,12 @@ from hcrag_tpu_torch.core.types import (
     PRIORITY_MATRIX,
     REDUCE_MAX,
     REDUCE_WEIGHTED_SUM,
+    EDGE_TYPES,
     CompositeWeights,
     QueryInput,
     QueryIntent,
     ScorerType,
+    edge_type_id,
     node_type_id,
     scorer_spec,
 )
@@ -75,6 +81,7 @@ from hcrag_tpu_torch.ingest.entities import (
     extract_entities_from_content,
     infer_query_intent,
 )
+from hcrag_tpu_torch.models.confidence import encoder_confidence
 from hcrag_tpu_torch.models.embedder import embedder_from_index
 from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
 from hcrag_tpu_torch.ops.quantize import (
@@ -214,14 +221,7 @@ class QueryEngine:
         self.pallas_super = int(pallas_super)
 
         put = self._put
-        self._n_rows = np.asarray(index.emb).shape[0]
-        mult = self._row_pad_multiple()
-        self._n_bank = -(-self._n_rows // mult) * mult
-        self._init_emb_banks(np.asarray(index.emb))
-        self.d_type_ids = put(index.type_ids.astype(np.int32))
-        self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
-        self.d_counts = put(index.entity_counts.astype(np.int32))
-        self.d_graph_ids = put(index.graph_ids.astype(np.int32))
+        self._upload_index()
         self.d_priority = put(PRIORITY_MATRIX)
 
         if graph is not None:
@@ -255,11 +255,43 @@ class QueryEngine:
 
     @property
     def embedder(self):
-        """The query-text embedder: the one given, else the index's own
-        (`embedder_from_index`, resolved at first use)."""
+        """The query-text embedder: the one given or attached, else the
+        index's own (`embedder_from_index` on the engine's device, resolved
+        at first use)."""
         if self._embedder is None:
-            self._embedder = embedder_from_index(self.index)
+            self._embedder = embedder_from_index(self.index, device=self.device)
         return self._embedder
+
+    def _upload_index(self) -> None:
+        """The index on the device: the banks, padded to the row count's
+        multiple (`_row_pad_multiple`), and the per-row tensors."""
+        index, put = self.index, self._put
+        self._n_rows = np.asarray(index.emb).shape[0]
+        mult = self._row_pad_multiple()
+        self._n_bank = -(-self._n_rows // mult) * mult
+        self._init_emb_banks(np.asarray(index.emb))
+        self.d_type_ids = put(index.type_ids.astype(np.int32))
+        self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
+        self.d_counts = put(index.entity_counts.astype(np.int32))
+        self.d_graph_ids = put(index.graph_ids.astype(np.int32))
+
+    def refresh_index(self) -> None:
+        """Upload the index again after `DenseIndex.append` (or another
+        change to its host arrays): the banks at the new row count's
+        padding, the int8 banks quantized on the device as at set-up, and
+        the per-row tensors.  The step is built at every call, so nothing
+        else keeps the old shapes.  The old banks are released first
+        (`_init_emb_banks` drops the others before it builds)."""
+        self.d_emb = None
+        self._upload_index()
+
+    def attach_device_encoder(self, minilm_embedder) -> None:
+        """Encode text queries with this embedder (`models/minilm.py`'s
+        `MiniLMEmbedder`, on the engine's device): `process_query`,
+        `search_by_category`, `hybrid_search` and `create_query_input` then
+        tokenize on the host and run the encoder's forward pass on the
+        card."""
+        self._embedder = minilm_embedder
 
     # ------------------------------------------------------------------
     # Banks
@@ -749,7 +781,7 @@ class QueryEngine:
         """`query_batch_device`, with the outputs copied to host arrays."""
         if rerank:
             raise NotImplementedError(
-                "the learned re-ranker is not ported yet (ROADMAP.md A12)"
+                "the learned re-ranker is not ported yet (ROADMAP.md A4)"
             )
         out = self.query_batch_device(query_embs, **kwargs)
         names = (
@@ -795,19 +827,12 @@ class QueryEngine:
         """One text query end to end: parse -> embed -> retrieve ->
         summarize.  `parser` optionally supplies an LLM query parser (its
         `parse_query`); without one, or when it fails, the raw query is the
-        search text.  `with_confidence` (auto: on for a trainable encoder
-        over <= 100k rows, so off for the hashing embedder) needs the
-        encoder-confidence model, which is not ported yet."""
-        want_conf = with_confidence
-        if want_conf is None:
-            want_conf = (
-                hasattr(self.embedder, "load_params") and self.index.n <= 100_000
-            )
-        if want_conf:
-            raise NotImplementedError(
-                "encoder confidence (models/confidence.py) is not ported yet "
-                "(ROADMAP.md A8)"
-            )
+        search text.  `with_confidence` adds `encoder_confidence`
+        (`models/confidence.encoder_confidence`: the calibrated chance that
+        the distilled encoder serves this query as the true model would);
+        by default it is on for a trainable encoder (one with
+        `load_params`) over at most 100,000 rows, whose host feature pass
+        stays cheap."""
         parsed = {"search_text": query}
         if parser is not None:
             with GLOBAL_TIMER.span("process_query/parse"):
@@ -829,7 +854,7 @@ class QueryEngine:
             if results
             else 0.0
         )
-        return {
+        out = {
             "parsed_query": parsed,
             "search_text": search_text,
             "results": results,
@@ -838,6 +863,22 @@ class QueryEngine:
             ),
             "query_embedding": query_embedding,
         }
+        want_conf = with_confidence
+        if want_conf is None:
+            want_conf = (
+                hasattr(self.embedder, "load_params") and self.index.n <= 100_000
+            )
+        if want_conf:
+            with GLOBAL_TIMER.span("process_query/confidence"):
+                bank = np.asarray(self.index.emb, np.float32)
+                bank_norm = bank / np.maximum(
+                    np.linalg.norm(bank, axis=1, keepdims=True), 1e-12
+                )
+                out["encoder_confidence"] = encoder_confidence(
+                    self.embedder, bank_norm, search_text,
+                    query_emb=query_embedding[None, :],
+                )
+        return out
 
     def search_by_category(
         self,
@@ -890,3 +931,140 @@ class QueryEngine:
             entities=extract_entities_from_content(query),
             intent=infer_query_intent(query),
         )
+
+    def get_content_statistics(self) -> Dict:
+        return self.index.content_statistics()
+
+    def suggest_queries(self, limit: int = 8) -> List[str]:
+        """Query starters from the graph's first product names, category
+        and document, then three general ones; the first `limit`."""
+        suggestions: List[str] = []
+        if self.graph is not None:
+            g = self.graph
+
+            def texts(label):
+                return [str(g.node_texts[i]) for i, lbl in enumerate(g.node_labels)
+                        if lbl == label]
+
+            products = [t.split(" |")[0] for t in texts("Product")]
+            categories = texts("Category")
+            documents = texts("Document")
+            if products:
+                suggestions.append(f"Find products similar to {products[0]}")
+                if len(products) > 1:
+                    suggestions.append(f"Compare {products[0]} and {products[1]}")
+            if categories:
+                suggestions.append(f"Show me {categories[0]} products")
+            if documents:
+                suggestions.append(f"Show me the {documents[0]} document")
+                suggestions.append(f"What does the {documents[0]} documentation say?")
+        suggestions.extend(
+            [
+                "What products are under $500?",
+                "Show me technical specifications",
+                "What documents are available?",
+            ]
+        )
+        return suggestions[:limit]
+
+    # ------------------------------------------------------------------
+    # Graph-enriched lookups
+    # ------------------------------------------------------------------
+    def query_similar_products(self, product_id, limit: int = 5) -> List[Dict]:
+        """The products one hop from product `product_id` in the graph, by
+        price ascending (0 where the text holds none), at most `limit`."""
+        if self.graph is None:
+            return []
+        g = self.graph
+        node = next(
+            (i for i, (lbl, key) in enumerate(zip(g.node_labels, g.node_keys))
+             if lbl == "Product" and str(key) == str(product_id)),
+            None,
+        )
+        if node is None:
+            return []
+        nbrs, types = g.neighbors_of(node)
+        out = []
+        for nb, t in zip(nbrs, types):
+            if g.node_labels[int(nb)] != "Product":
+                continue
+            text = g.node_texts[int(nb)]
+            price = 0.0
+            if "Price: $" in text:
+                try:
+                    price = float(text.split("Price: $")[1].split(" |")[0])
+                except ValueError:
+                    pass
+            out.append(
+                {
+                    "product_name": text.split(" |")[0],
+                    "product_id": g.node_keys[int(nb)],
+                    "relationship_type": EDGE_TYPES[int(t)],
+                    "price": price,
+                }
+            )
+        out.sort(key=lambda r: r["price"])
+        return out[:limit]
+
+    @staticmethod
+    def _parse_product_node_text(text: str):
+        """(name, price, category) of a product node's text, "Name |
+        Category: X | Price: $Y | ..."; None where a field is missing or
+        does not parse."""
+        parts = text.split(" | ")
+        name, price, category = parts[0], None, None
+        for part in parts[1:]:
+            if part.startswith("Price: $"):
+                try:
+                    price = float(part[len("Price: $"):])
+                except ValueError:
+                    pass
+            elif part.startswith("Category: "):
+                category = part[len("Category: "):]
+        return name, price, category
+
+    def hybrid_search(self, search_term: str, limit: int = 5) -> List[Dict]:
+        """Dense search over 2 x `limit` rows, then, for each Product
+        database row with an entity id, its graph record: name, price,
+        category, up to 3 SAME_CATEGORY neighbours' names, the similarity
+        and the row text's first 100 characters.  Rows without an entity id,
+        or (with a graph) without a product node, are skipped; without a
+        graph the entity id is the name."""
+        q_emb = np.asarray(self.embedder.encode([search_term])[0])
+        res = self.query_batch(q_emb, top_k=limit * 2)
+        items: List[Dict] = []
+        same_category = edge_type_id("SAME_CATEGORY")
+        for score, row in zip(res.top_scores[0], res.top_indices[0]):
+            meta = self.index.metadata[int(row)]
+            if not (meta.get("type") == "database_table"
+                    and meta.get("table_name") == "Product"):
+                continue
+            entity_id = meta.get("entity_id")
+            if not entity_id:
+                continue
+            name, price, category = str(entity_id), None, None
+            related: List[str] = []
+            if self.graph is not None:
+                gid = int(self.index.graph_ids[int(row)])
+                if gid < 0:
+                    continue
+                name, price, category = self._parse_product_node_text(
+                    self.graph.node_texts[gid]
+                )
+                nbrs, types = self.graph.neighbors_of(gid)
+                for nb, t in zip(nbrs, types):
+                    if int(t) == same_category and len(related) < 3:
+                        related.append(self.graph.node_texts[int(nb)].split(" |")[0])
+            items.append(
+                {
+                    "name": name,
+                    "price": price,
+                    "category": category,
+                    "similarity_score": float(score),
+                    "related_products": related,
+                    "embedding_text": self.index.texts[int(row)][:100] + "...",
+                }
+            )
+            if len(items) >= limit:
+                break
+        return items

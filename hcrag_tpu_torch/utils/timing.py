@@ -6,6 +6,9 @@ Counterpart of `hcrag_tpu/utils/timing.py`:
     stages of a query;
   * `device_time` — mean seconds per call of a function on a named device:
     CUDA events for a CUDA device, the host clock for the CPU;
+  * `graph_ms` — mean device milliseconds per call of a function replayed
+    from a CUDA graph, for kernels that take less time than the host takes
+    to launch them;
   * `trace_to` — a torch.profiler trace of a block of code, exported as a
     Chrome trace (chrome://tracing, Perfetto).
 """
@@ -91,6 +94,32 @@ def device_time(fn, *args, iters: int = 10, warmup: int = 2,
         end.record()
         torch.cuda.synchronize(dev)
         return begin.elapsed_time(end) / 1e3 / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean device milliseconds per call of fn(), `calls` calls captured
+    back to back into one CUDA graph and the graph replayed `replays` times
+    between CUDA events.  The replay launches no Python, so the time is the
+    kernels' and the gaps between them, not the host's cost of launching
+    (which exceeds a launch of a few microseconds).  fn runs on the current
+    CUDA device, once first to warm up (builds, caches)."""
+    if calls < 1 or replays < 1:
+        raise ValueError(f"calls and replays must be at least 1, got {calls}, {replays}")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end) / (calls * replays)
 
 
 @contextlib.contextmanager

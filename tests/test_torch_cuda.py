@@ -387,20 +387,55 @@ def _b6_inputs(b, n, seed, dev, d=384, w=8):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
-@pytest.mark.parametrize("b,n,reduction,with_llm",
-                         [(1, 8192, 0, True), (256, 8192, 0, True), (256, 8192, 1, False),
-                          (3, 8191, 0, False), (17, 700, 1, True)])
-def test_batch_relevance_equals_plain(cuda, b, n, reduction, with_llm):
+# Both regimes of B6: up to 16 queries the byte-bound kernel at query
+# blocks of 1-16 (path R is 1 x 2048-32768), past 16 the tiled loop
+# (256 x 8192 is the ablation shape), with ragged last node and query
+# blocks; d = 383 reads scalars in (a) and sends 300 queries to (a) at 16
+# a block; W = 1 and a W past the tiled loop's shared memory.
+B6_SHAPES = [(1, 8192, 384, 8, 0, True), (1, 2048, 384, 8, 0, True),
+             (1, 32768, 384, 8, 0, True), (256, 8192, 384, 8, 0, True),
+             (256, 8192, 384, 8, 1, False), (256, 8192, 384, 8, 0, False),
+             (3, 8191, 384, 8, 0, False), (17, 700, 384, 8, 1, True),
+             (2, 999, 383, 8, 0, True), (8, 4097, 384, 1, 1, True),
+             (16, 3001, 1040, 8, 0, True), (300, 1001, 383, 8, 0, True),
+             (130, 257, 16, 1, 1, False), (64, 300, 384, 210, 0, True),
+             (5, 100, 7, 3, 0, True)]
+
+
+@pytest.mark.parametrize("b,n,d,w,reduction,with_llm", B6_SHAPES)
+def test_batch_relevance_equals_plain(cuda, b, n, d, w, reduction, with_llm):
     from hcrag_tpu_torch.ops import scoring_cuda
 
-    args = _b6_inputs(b, n, seed=b + n, dev=cuda)
+    args = _b6_inputs(b, n, seed=b + n, dev=cuda, d=d, w=w)
     if not with_llm:
         args[-1] = None
+    plan = scoring_cuda.launch_plan(args[0], args[4], w)
+    assert plan.regime == ("tiled" if b > 16 and d % 8 == 0 and w < 200 else "few")
+    before = scoring_cuda.batch_relevance.launches
     got = scoring_cuda.batch_relevance(*args, reduction=reduction)
     want = scoring_cuda.batch_relevance_plain(*args, reduction=reduction)
     torch.cuda.synchronize()
+    assert scoring_cuda.batch_relevance.launches == before + 1
     assert got.shape == (b, n)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_batch_relevance_entity_ratio_is_exact(cuda, b):
+    """With weights (0, 0, 1, 0) a score is the entity ratio alone, so both
+    regimes' division (the fast path of div.rn, without its slow-path call)
+    must give the plain version's correctly rounded quotient bit for bit,
+    over query counts 1 to 4000 and every overlap of 8 words."""
+    from hcrag_tpu_torch.ops import scoring_cuda
+
+    args = _b6_inputs(b, 4096, seed=5, dev=cuda)
+    rng = np.random.default_rng(6)
+    args[2] = torch.from_numpy(rng.integers(1, 4000, b).astype(np.int32)).to(cuda)
+    args[2][0] = 256
+    args[8] = torch.tensor([0.0, 0.0, 1.0, 0.0], device=cuda)
+    got = scoring_cuda.batch_relevance(*args, reduction=0)
+    want = scoring_cuda.batch_relevance_plain(*args, reduction=0)
+    assert torch.equal(got, want)
 
 
 INT8_MODES = {
@@ -779,3 +814,47 @@ def test_b3e_filter_and_ties(cuda, k, tile):
     tiles = -(-9000 // tile)
     want = torch.arange(tiles, device=cuda)[:, None] * tile + torch.arange(k, device=cuda)
     assert torch.equal(out[1], want.expand(65, tiles, k).to(torch.int32))
+
+
+@pytest.mark.parametrize("max_len", [64, 192])
+def test_minilm_on_card_equals_cpu(cuda, max_len):
+    """The distilled encoder's forward on the card against the CPU's, in
+    f32 with TF32 off: within 1e-4 on the normalized embeddings."""
+    from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+
+    card = load_distilled_embedder(device=cuda)
+    cpu = load_distilled_embedder(device="cpu")
+    vocab = [w for w in card.tokenizer.vocab if w.isalpha()]
+    rng = np.random.default_rng(max_len)
+    texts = [" ".join(rng.choice(vocab, size=k)) for k in (1, 4, 9, 30, 60, 150, 190, 7)]
+    got, want = card.encode(texts, max_len=max_len), cpu.encode(texts, max_len=max_len)
+    assert got.shape == (8, 384) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-4
+    assert next(card.model.parameters()).device.type == "cuda"
+
+
+def test_refresh_index_on_card(cuda):
+    """`refresh_index` after `append` on the card: the bank crosses a tile
+    boundary, a query equal to an appended row finds that row first, and
+    the card equals the CPU engine refreshed the same way."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    rng = np.random.default_rng(11)
+    new = rng.standard_normal((3000, 384)).astype(np.float32)
+    meta = [{"id": f"new_{i}", "type": "database_table"} for i in range(3000)]
+    texts = [f"appended {i}" for i in range(3000)]
+    engines = []
+    for dev in (cuda, "cpu"):
+        index, graph = synthetic_setup(5000, 384)
+        engine = QueryEngine(index, graph, device=dev, ell_max_degree=8,
+                             quantize_int8=True, int8_rescore=32, int8_f32_rescore=True)
+        index.append(new, meta, texts)
+        engine.refresh_index()
+        engines.append(engine)
+    assert engines[0]._n_bank == 8192 and engines[0].d_emb_int8.shape[0] == 8192
+    q = np.concatenate([new[[0, 1234, 2999]], rng.standard_normal((13, 384))]).astype(np.float32)
+    rg, rc = (e.query_batch(q, top_k=10) for e in engines)
+    assert rg.top_indices[:3, 0].tolist() == [5000, 6234, 7999]
+    np.testing.assert_array_equal(rg.top_indices, rc.top_indices)
+    np.testing.assert_allclose(rg.top_scores, rc.top_scores, atol=1e-5, rtol=0)

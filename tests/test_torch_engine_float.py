@@ -305,13 +305,28 @@ def test_hashing_embedder_matches_jax():
 
 
 def test_embedder_from_index_refuses_minilm_and_confidence_raises():
-    index, graph = synthetic_setup(256, 64)
-    index.generation_info["model_name"] = "all-MiniLM-L6-v2"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        embedder_from_index(index)
-    engine = QueryEngine(index, graph, device="cpu", embedder=HashingEmbedder(64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.process_query("red bike", with_confidence=True)
+    """Both once raised, before the MiniLM encoder and the encoder
+    confidence were ported; now they answer as the JAX package does: an
+    index of MiniLM vectors whose width the distilled encoder does not have
+    gets the hashing embedder, and `with_confidence=True` adds the
+    confidence of whatever embedder the engine has."""
+    from hcrag_tpu.models.embedder import embedder_from_index as jax_embedder_from_index
+
+    (jidx, jg), (index, graph) = _synthetic_setup(256, D), synthetic_setup(256, D)
+    for idx in (jidx, index):
+        idx.generation_info["model_name"] = "all-MiniLM-L6-v2"
+    got = embedder_from_index(index, device="cpu")
+    assert type(got).__name__ == type(jax_embedder_from_index(jidx)).__name__ \
+        == "HashingEmbedder"
+    engine = QueryEngine(index, graph, device="cpu", embedder=HashingEmbedder(D))
+    jengine = JaxEngine(jidx, jg, use_pallas=True, pallas_interpret=True,
+                        embedder=JaxHashingEmbedder(D))
+    ot = engine.process_query("red bike", with_confidence=True)
+    oj = jengine.process_query("red bike", with_confidence=True)
+    assert ot["encoder_confidence"].keys() == oj["encoder_confidence"].keys()
+    for k, v in oj["encoder_confidence"].items():
+        assert abs(ot["encoder_confidence"][k] - v) <= 1e-6, k
+    assert "encoder_confidence" not in engine.process_query("red bike")
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout.splitlines()
-    assert int(out[0]) >= 18, "expected every submodule of the port to import"
+    assert int(out[0]) >= 20, "expected every submodule of the port to import"
     assert out[1] == "", f"the port pulled in {out[1]}"
 
 
@@ -65,6 +65,10 @@ def test_port_imports_no_jax():
         "hcrag_tpu_torch.pipeline.isrelevant",
         "hcrag_tpu_torch.ops.sweep_cuda",
         "hcrag_tpu_torch.benchmarks.kernel_sweep",
+        "hcrag_tpu_torch.benchmarks.ab_kernels",
+        "hcrag_tpu_torch.models.minilm",
+        "hcrag_tpu_torch.models.confidence",
+        "hcrag_tpu_torch.core.dense_index",
     ],
 )
 def test_modules_import_without_building(module):
