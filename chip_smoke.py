@@ -52,6 +52,26 @@ last line:
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
+     path E  — serving over the same engine through `BatchedExecutor`
+               (retrieval mode; batch 1024, dispatch sizes 128/256/1024,
+               pipeline depth 3, 2 ms wait): Poisson traffic at 2,000,
+               5,000, 10,000 and 20,000 req/s for 3 s each (achieved req/s,
+               p50/p95/p99 latency from scheduled arrival to resolve, mean
+               batch fill, the interpreter's full collections), 20,000
+               req/s again with the set-up's objects frozen (`gc.freeze`),
+               a saturation row of 65,536 requests and a second one traced
+               on the device (busy share), then a full-mode saturation row;
+               B1 and B2 launch once per dispatched batch; every saturation
+               batch holds 1024 requests whose results equal `query_batch`
+               at B=1024 bit for bit, and 256 open-loop requests equal
+               `query_batch` (indices exact, scores within 1e-6);
+     path RR — the learned re-ranker over the same engine:
+               `distill_judge_aware` on the card (512 queries, top_m 20, 30
+               epochs of batch 32; training steps/s), `query_batch(rerank=
+               True)` at B=1024 (host ms, the re-rank stage's share), the
+               card's checkpoint restored on the CPU (scores within 1e-6),
+               NDCG@10 against the teacher on 512 held-out queries, re-ranked
+               and not (a report);
   5. path F2 — the same index in `bench.py`'s bf16 mode (`exact_rescore=32`:
                B5 over a bf16 bank, B2, the f32 rescore), B=8192;
      path S1 — the same index, `exact_rescore=32, pallas_super=8` (1024-row
@@ -65,6 +85,17 @@ last line:
                `search_by_category` (every 500th row re-typed) and
                `retrieve_batch_device` at B=1024, each of which must launch
                B4;
+     path A  — the agents and pipelines over F1's engine, with an embedder
+               that encodes a row's text to its row (`testing.
+               RowLookupEmbedder`) and the offline LLM client:
+               `RetrievalAgent.run` on 3 questions, `ImprovedRetrievalAgent`
+               with a thread id and its journal read back by a fresh
+               `MemorySaver`, `EnhancedRAG`, `GraphRelevanceScorer`, five
+               `QueryInterface` modes and `answer_graph_question` (host ms
+               and B4 launches per call; no scoring fallback and no failure
+               shape taken); then the same runs over a 20,000-row engine on
+               the card and on the CPU agree (traces, sampled ids, node
+               order, scores within 1e-5);
      path M  — the MiniLM query encoder on the card over F1's engine: the
                distilled weights (`tools/minilm_distilled*`) loaded and
                attached (`attach_device_encoder`), 1024 texts of the
@@ -142,6 +173,8 @@ a result when CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import resource
 import subprocess
@@ -171,6 +204,11 @@ LARGE_K, LARGE_K_BATCH = 256, 64  # paths L1 and L2
 M_TEXTS, M_CONF_ROWS = 1024, 100_000  # path M; the confidence's auto-rule limit
 REFRESH_ROWS = 10_000  # rows the refresh phase appends
 LARGE_K_MIN_RECALL_INT8 = 0.95
+E_BATCH, E_SIZES, E_DEPTH, E_WAIT_MS = 1024, (128, 256, 1024), 3, 2.0  # the JAX harness's
+E_RATES, E_SECONDS, E_SAT = (2000.0, 5000.0, 10000.0, 20000.0), 3.0, 65536
+E_WAIT_S = 60.0  # the most one served request may take before the phase fails
+RR_QUERIES, RR_TOP_M, RR_EPOCHS, RR_BATCH = 512, 20, 30, 32
+A_SEED, A_SMALL_ROWS = 42, 20_000  # the agents' sampling seed; the card-vs-CPU engine
 
 
 def log(*a):
@@ -843,13 +881,15 @@ def check_small_against_cpu(dev, label: str, opts: dict, tf32: bool = False) -> 
     log(f"  {label}: small index with TF32 enabled: the same bits as without")
 
 
-def profiled(step, steps: int):
+def profiled(step, steps: int, host_ops: bool = True):
     """torch.profiler over `steps` calls of step(): (device-side rows
-    [(us, name, count)], device busy us, wall us)."""
+    [(us, name, count)], device busy us, wall us).  Without `host_ops` it
+    traces the device alone, which costs the host less."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -1100,6 +1140,243 @@ def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
     dq = torch.from_numpy(queries).to(dev)
     time_step(engine, dq, "int8", card, reps=5)
     int8_kernels_at_path(engine, dq, "int8", card, rec, RESCORE)
+    return engine
+
+
+def _e_queries(n: int = E_SAT) -> np.ndarray:
+    rng = np.random.default_rng(7)  # the JAX harness's query pool
+    q = rng.standard_normal((n, DIM)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return q
+
+
+def _check_served_batches(engine, futs, queries, label, full=False) -> int:
+    """Every batch of the saturation row holds 1024 consecutive requests,
+    and each request's result equals `query_batch` of those 1024 queries:
+    indices exact, scores bit for bit (full mode: every field)."""
+    batches = {}
+    for i, f in enumerate(futs):
+        batches.setdefault(id(f._batch), []).append((f._slot, i))
+    for members in batches.values():
+        slots, reqs = zip(*members)
+        lo = reqs[0]
+        if len(members) != E_BATCH or list(slots) != list(range(E_BATCH)) or \
+                list(reqs) != list(range(lo, lo + E_BATCH)):
+            raise AssertionError(f"{label}: a saturation batch holds {len(members)} requests")
+        ref = engine.query_batch(queries[lo:lo + E_BATCH], top_k=TOP_K)
+        for slot, i in members:
+            r = futs[i].result(timeout=1)
+            if full:
+                got = [r.top_scores, r.top_indices, r.relevance, r.combined, r.expanded_nodes,
+                       np.int32(r.expanded_count), r.expanded_relevance]
+                want = [ref.top_scores[slot], ref.top_indices[slot], ref.relevance[slot],
+                        ref.combined[slot], ref.expanded_nodes[slot],
+                        ref.expanded_counts[slot], ref.expanded_relevance[slot]]
+            else:
+                got, want = [r[0], r[1]], [ref.top_scores[slot], ref.top_indices[slot]]
+            for a, b in zip(got, want):
+                if not np.array_equal(np.asarray(a), np.asarray(b)):
+                    raise AssertionError(f"{label}: request {i} differs from query_batch")
+    return len(batches)
+
+
+@contextlib.contextmanager
+def collections(frozen: bool):
+    """Record the interpreter's full (generation-2) collections inside the
+    block, each one's seconds appended to the list it yields.  With
+    `frozen`, every object alive at entry (the set-up: the index's 1M
+    metadata dicts and texts) is moved out of the collector's reach
+    (`gc.freeze`) until the block ends."""
+    pauses, stamp = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            stamp["t"] = time.perf_counter()
+        elif info["generation"] == 2:
+            pauses.append(time.perf_counter() - stamp["t"])
+
+    if frozen:
+        gc.collect()
+        gc.freeze()
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+        if frozen:
+            gc.unfreeze()
+
+
+def path_e(engine, dev, card, rec) -> None:
+    """Serving through `BatchedExecutor` over the int8 path's engine, with
+    the JAX harness's defaults (batch 1024, sizes 128/256/1024, pipeline
+    depth 3, 2 ms wait, top_k 10): Poisson traffic at four rates for 3 s
+    each, then the highest rate again with the set-up's objects frozen
+    (`collections`), a saturation row (65,536 requests through
+    `submit_many`, frozen too), the device's busy share over a second
+    saturation run traced on the device, and a full-mode saturation row.
+    B1 and B2 must each launch once per dispatched batch."""
+    from hcrag_tpu_torch.benchmarks import serving_openloop as so
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    t_phase = time.time()
+    queries = _e_queries()
+    launches = {}
+    for mode in ("retrieval", "full"):
+        label = "E" if mode == "retrieval" else "E-full"
+        zero_counts()
+        ex = BatchedExecutor(engine, batch_size=E_BATCH, batch_sizes=E_SIZES,
+                             pipeline_depth=E_DEPTH, max_wait_ms=E_WAIT_MS, top_k=TOP_K,
+                             mode=mode)
+        try:
+            for s in E_SIZES:  # one batch of each size first
+                ex.submit_many(queries[:s])[-1].result(timeout=E_WAIT_S)
+            open_futs = []
+            rows = [(r, False) for r in E_RATES] + [(E_RATES[-1], True)]
+            for rate, frozen in rows if mode == "retrieval" else ():
+                futs = []
+                with collections(frozen) as pauses:
+                    st = so.run_rate(ex, queries, rate, E_SECONDS, futs, timeout=E_WAIT_S)
+                open_futs.append(futs)
+                log(f"[E] offered {rate:.0f} req/s for {E_SECONDS:.0f} s"
+                    f"{' (set-up objects frozen)' if frozen else ''}: achieved "
+                    f"{st['achieved_rps']:.1f} req/s, latency p50 / p95 / p99 "
+                    f"{st['latency_ms_p50']:.3f} / {st['latency_ms_p95']:.3f} / "
+                    f"{st['latency_ms_p99']:.3f} ms (scheduled arrival -> resolve), mean "
+                    f"batch fill so far {so.mean_fill(ex):.1f}; full collections "
+                    f"{len(pauses)}, longest {max(pauses, default=0) * 1e3:.1f} ms; {card}")
+                time.sleep(0.5)
+            before = ex.batches_dispatched
+            sat_futs = []
+            with collections(True) as pauses:
+                sat = so.run_saturation(ex, queries, E_SAT, sat_futs, timeout=E_WAIT_S)
+                sat_batches = ex.batches_dispatched - before
+                _, busy_us, wall_us = profiled(
+                    lambda: so.run_saturation(ex, queries, E_SAT, timeout=E_WAIT_S), 1,
+                    host_ops=False)
+        finally:
+            ex.shutdown()
+        launches[label] = counts = read_counts()
+        sat_ms = E_SAT / sat["requests_per_s"] * 1e3
+        log(f"[{label}] saturation (set-up objects frozen; full collections {len(pauses)}): "
+            f"{E_SAT} requests in {sat_batches} batches, {sat['requests_per_s']:.1f} req/s "
+            f"({sat_ms:.1f} ms); a second run traced on the device: {busy_us / 1e3:.3f} ms of "
+            f"device time in {wall_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy); "
+            f"{card}")
+        log(f"[{label}] {ex.batches_dispatched} batches dispatched, mean fill "
+            f"{so.mean_fill(ex):.1f}; launches {counts}")
+        per_batch = {"int8_tile_topk"} | {
+            "packed_candidate_merge" for s in E_SIZES
+            if engine.resolved_kernel_config(s, TOP_K)["merge"].startswith("packed")}
+        for name, n in counts.items():
+            want = ex.batches_dispatched if name in per_batch else 0
+            if n != want:
+                raise AssertionError(f"{label}: {name} launched {n} times for "
+                                     f"{ex.batches_dispatched} batches")
+        n = _check_served_batches(engine, sat_futs, queries, label, full=mode == "full")
+        log(f"[{label}] the {n} saturation batches of 1024 equal query_batch at B=1024 "
+            f"on the same queries, bit for bit")
+        if mode == "retrieval":
+            flat = [(i, f) for futs in open_futs for i, f in enumerate(futs)]
+            pick = np.random.default_rng(3).choice(len(flat), 256, replace=False)
+            idx = np.array([flat[p][0] % len(queries) for p in pick])
+            ref = engine.query_batch(queries[idx], top_k=TOP_K)
+            err = 0.0
+            for j, p in enumerate(pick):
+                scores, indices = flat[p][1].result(timeout=1)
+                if not np.array_equal(indices, ref.top_indices[j]):
+                    raise AssertionError(f"E: open-loop request {p} differs from query_batch")
+                err = max(err, float(np.abs(scores - ref.top_scores[j]).max()))
+            if err > 1e-6:
+                raise AssertionError(f"E: open-loop scores differ by {err} > 1e-6")
+            log(f"[E] 256 open-loop requests against query_batch at B=256: indices equal, "
+                f"scores within {err:.3g} (gate 1e-6)")
+    rec.launches.update(launches)
+    log(f"[E] phase {time.time() - t_phase:.1f} s")
+
+
+def path_rr(engine, index, dev, card, rec) -> None:
+    """The learned re-ranker over the int8 path's engine: `distill_judge_aware`
+    on the card (512 queries, top_m 20, 30 epochs, batch 32), then
+    `query_batch(rerank=True)` at B=1024; the card's checkpoint restored on
+    the CPU scores the same features within 1e-6; NDCG@10 against the
+    teacher on 512 held-out queries, re-ranked and not (a report)."""
+    import tempfile
+
+    from hcrag_tpu_torch.models import reranker as rr
+    from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER
+
+    t_phase = time.time()
+    rng = np.random.default_rng(17)
+    ids = rng.choice(N_ROWS, 2 * RR_QUERIES, replace=False)
+    embs = index.emb[ids] + 0.05 * rng.standard_normal((len(ids), DIM)).astype(np.float32)
+    texts = [index.texts[i] for i in ids]
+    model = rr.Reranker(seed=0, device=dev)
+    fit, train_s = model.fit_distill, []
+
+    def timed_fit(*a, **k):  # the training loop's own time, query_batch apart
+        t0 = time.perf_counter()
+        out = fit(*a, **k)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        return out
+
+    model.fit_distill = timed_fit
+    zero_counts()
+    t0 = time.perf_counter()
+    out = rr.distill_judge_aware(engine, model, texts[:RR_QUERIES], embs[:RR_QUERIES],
+                                 top_m=RR_TOP_M, epochs=RR_EPOCHS, seed=0)
+    dt = time.perf_counter() - t0
+    del model.fit_distill
+    steps = RR_EPOCHS * -(-RR_QUERIES // RR_BATCH)
+    losses = out["losses"]
+    if len(losses) != RR_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"RR: losses {losses}")
+    log(f"[RR] distill_judge_aware on the card: {RR_QUERIES} queries, top_m {RR_TOP_M}, "
+        f"{RR_EPOCHS} epochs of batch {RR_BATCH} ({steps} steps) in {dt:.2f} s (host clock), "
+        f"of which training {train_s[0]:.2f} s: {steps / train_s[0]:.1f} training steps/s; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {card}")
+    q = _e_queries(E_BATCH)
+    engine.set_reranker(model)
+    try:
+        engine.query_batch(q, top_k=TOP_K, rerank=True)  # first call
+        GLOBAL_TIMER.reset()
+        t0 = time.perf_counter()
+        res = engine.query_batch(q, top_k=TOP_K, rerank=True)
+        total = time.perf_counter() - t0
+        stage = GLOBAL_TIMER.totals["query_batch/rerank"]
+    finally:
+        engine.set_reranker(None)
+    plain = engine.query_batch(q, top_k=TOP_K)
+    launches = read_counts()
+    rec.launches["RR"] = launches
+    check_result(plain, E_BATCH, N_ROWS)
+    if res.rerank_scores is None or not (np.diff(res.rerank_scores, axis=1) <= 0).all() or \
+            not np.array_equal(np.sort(res.top_indices, 1), np.sort(plain.top_indices, 1)):
+        raise AssertionError("RR: the re-ranked result is not its top-k ordered by its scores")
+    log(f"[RR] query_batch(rerank=True) B={E_BATCH}: {total * 1e3:.1f} ms (host clock), "
+        f"the re-rank stage {stage * 1e3:.1f} ms ({100 * stage / total:.1f}%); launches "
+        f"during the phase {launches}; {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(f"{tmp}/reranker.npz", step=steps)
+        host = rr.Reranker(seed=5, device="cpu")
+        if host.restore(f"{tmp}/reranker.npz") != steps:
+            raise AssertionError("RR: the checkpoint's step did not round-trip")
+    feats = out["features"][:64]
+    err = float(np.abs(host.score(feats) - model.score(feats)).max())
+    if not err <= 1e-6:
+        raise AssertionError(f"RR: the card's checkpoint scores {err} away on the CPU")
+    held = rr.distill_judge_aware(engine, rr.Reranker(seed=1, device=dev), texts[RR_QUERIES:],
+                                  embs[RR_QUERIES:], top_m=RR_TOP_M, epochs=0)
+    plain = rr.ndcg_at_k(np.tile(np.arange(RR_TOP_M), (RR_QUERIES, 1)), held["labels"], 10)
+    order = np.argsort(-model.score(held["features"]), axis=1, kind="stable")
+    learned = rr.ndcg_at_k(order, held["labels"], 10)
+    log(f"[RR] the card's checkpoint restored on the CPU: scores within {err:.3g} (gate "
+        f"1e-6); NDCG@10 against the teacher on {RR_QUERIES} held-out queries (no gate): "
+        f"engine order {plain:.4f}, re-ranked {learned:.4f}")
+    log(f"[RR] phase {time.time() - t_phase:.1f} s")
+
+
 
 
 def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1428,6 +1705,164 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
         f"{card})")
     rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
     return engine
+
+
+def _agent_questions(graph, seed: int, index):
+    """Texts of two rows the agent samples (each passes the semantic gate on
+    its own node through `RowLookupEmbedder`), and one that names none."""
+    import random
+
+    rng = random.Random(seed)
+    ids = [rng.randint(0, graph.num_nodes - 1) for _ in range(20)]
+    return [index.texts[int(graph.node_to_row[ids[0]])],
+            index.texts[int(graph.node_to_row[ids[7]])], "completely absurd query zzzxqwy"]
+
+
+def run_pipelines(engine, graph, index, tmp: str, timed=None) -> dict:
+    """Every pipeline over `engine` with the offline client and seed
+    A_SEED; returns what the card-vs-CPU check compares.  `timed(label,
+    fn)` wraps each call (the phase times them)."""
+    from hcrag_tpu_torch import config as cfg
+    from hcrag_tpu_torch.pipeline.agent import RetrievalAgent
+    from hcrag_tpu_torch.pipeline.enhanced import EnhancedRAG
+    from hcrag_tpu_torch.pipeline.improved_agent import ImprovedRetrievalAgent, MemorySaver
+    from hcrag_tpu_torch.pipeline.integration import GraphRelevanceScorer
+    from hcrag_tpu_torch.pipeline.llm import LLMClient
+    from hcrag_tpu_torch.query.graph_query import answer_graph_question
+    from hcrag_tpu_torch.query.interface import QueryInterface
+
+    timed = timed or (lambda label, fn: fn())
+    conf = cfg.RuntimeConfig(random_seed=A_SEED, llm_base_url="")
+    client = LLMClient(conf)
+    out = {"agent": []}
+    questions = _agent_questions(graph, A_SEED, index)
+    agent = RetrievalAgent(engine, client=client, config=conf)
+    out["sampled"] = agent.sample_nodes({})["sampled_nodes"]
+    for i, question in enumerate(questions):
+        r = timed(f"RetrievalAgent.run(question {i})", lambda: agent.run(question))
+        if r.node_trace[-1] != "generate_answer" or not r.final_answer:
+            raise AssertionError(f"A: agent run {i} did not answer")
+        if i < 2:
+            # The scoring stage's fallback keeps the top-5 semantic nodes and
+            # sets no expanded scored nodes; batch_isRelevant scores all.
+            n_all = len(r.semantic_scored_nodes) + len(r.expanded_scored_nodes)
+            if not r.expanded_scored_nodes or len(r.final_relevant_nodes) != min(15, n_all):
+                raise AssertionError(f"A: agent run {i} took the scoring fallback")
+        out["agent"].append((r.node_trace, [n.text for n in r.final_relevant_nodes],
+                             [n.score for n in r.final_relevant_nodes]))
+    saver = MemorySaver(persist_dir=f"{tmp}/journal")
+    improved = ImprovedRetrievalAgent(engine, client=client, config=conf, checkpointer=saver)
+    ri = timed("ImprovedRetrievalAgent.run", lambda: improved.run(
+        questions[1], thread_id="smoke", user_id="u"))
+    resumed = MemorySaver(persist_dir=f"{tmp}/journal")
+    if resumed.latest("smoke")["node"] != "generate_answer" or \
+            len(resumed.get("smoke")) != len(ri.node_trace) or not ri.expanded_scored_nodes:
+        raise AssertionError("A: the improved agent's journal did not resume")
+    out["improved"] = (ri.node_trace, [n.score for n in ri.final_relevant_nodes])
+    rag = timed("EnhancedRAG.query (first: builds the metadata-id map)",
+                lambda: EnhancedRAG(engine, client=client).query(questions[0], top_k=5))
+    rag = timed("EnhancedRAG.query", lambda: EnhancedRAG(engine, client=client).query(
+        questions[0], top_k=5))
+    if "error" in rag.metadata or not rag.context_used:
+        raise AssertionError(f"A: EnhancedRAG failed: {rag.metadata}")
+    out["rag"] = ([c["content"] for c in rag.context_used], rag.relevance_scores)
+    grs = timed("GraphRelevanceScorer.score_query_against_graph",
+                lambda: GraphRelevanceScorer(engine, client=client).score_query_against_graph(
+                    questions[0], top_k=5))
+    if "error" in grs or not grs["nodes_found"]:
+        raise AssertionError(f"A: GraphRelevanceScorer failed: {grs.get('error')}")
+    out["grs"] = {k: [s["relevance_score"] for s in v] for k, v in grs["results"].items()}
+    iface = timed("QueryInterface(...) (token table)",
+                  lambda: QueryInterface(engine, llm=client))
+    out["iface"] = {}
+    for mode in ("vector", "keyword", "context", "default", "auto"):
+        r = timed(f"QueryInterface.query(mode={mode})", lambda: iface.query(questions[0], mode))
+        if r["answer"].startswith("Query failed") or not r["metadata"].get("results"):
+            raise AssertionError(f"A: QueryInterface mode {mode} failed: {r['answer']}")
+        out["iface"][mode] = [(h["content"], h["similarity_score"])
+                              for h in r["metadata"]["results"]]
+    g = timed("answer_graph_question", lambda: answer_graph_question(
+        graph, "Show products for n12", client))
+    if not g["match_count"]:
+        raise AssertionError("A: answer_graph_question matched nothing")
+    out["graph"] = g["matches"]
+    return out
+
+
+def path_a(engine, index, graph, dev, card, rec) -> None:
+    """The agents and pipelines over F1's engine (f32, 1M rows; B4 in
+    `process_query`), with `RowLookupEmbedder` so questions naming a row
+    find it: each call's host time and B4 launches; no fallback taken.
+    Then the same runs over a 20,000-row engine on the card and on the CPU
+    must agree."""
+    import tempfile
+
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import RowLookupEmbedder
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    t_phase = time.time()
+    engine.attach_device_encoder(RowLookupEmbedder(index))
+
+    def timed(label, fn):
+        b4 = tc.float_tile_topk.launches
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"[A] {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms (host clock), "
+            f"B4 launches {tc.float_tile_topk.launches - b4}")
+        return out
+
+    zero_counts()
+    b4 = tc.float_tile_topk.launches
+    out = engine.process_query(index.texts[4321], top_k=TOP_K)
+    if tc.float_tile_topk.launches - b4 != 1 or out["results"][0]["content"] != index.texts[4321]:
+        raise AssertionError("A: process_query did not launch B4 once or find its row")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_pipelines(engine, graph, index, tmp, timed)
+    rec.launches["A"] = read_counts()
+    log(f"[A] launches over the phase {rec.launches['A']}; {card}")
+
+    small_index, small_graph = synthetic_setup(A_SMALL_ROWS, DIM, graph_degree=4)
+    got = []
+    for d in (dev, "cpu"):
+        eng = QueryEngine(small_index, small_graph, device=d, ell_max_degree=8,
+                          embedder=RowLookupEmbedder(small_index))
+        with tempfile.TemporaryDirectory() as tmp:
+            got.append(run_pipelines(eng, small_graph, small_index, tmp))
+    compare_pipelines(*got)
+    log(f"[A] {A_SMALL_ROWS:,}-row engine: card == CPU (node traces, sampled ids, final "
+        f"node order, every score within 1e-5) over the agent, the improved agent, "
+        f"EnhancedRAG, GraphRelevanceScorer, five QueryInterface modes and a graph query")
+    log(f"[A] phase {time.time() - t_phase:.1f} s")
+
+
+def compare_pipelines(card, cpu) -> None:
+    def close(a, b, what):
+        if len(a) != len(b) or (len(a) and float(np.abs(np.subtract(a, b)).max()) > 1e-5):
+            raise AssertionError(f"A: card and CPU differ in {what}")
+
+    if card["sampled"] != cpu["sampled"]:
+        raise AssertionError("A: card and CPU sampled other ids")
+    for (tg, ng, sg), (tc_, nc, sc) in zip(card["agent"], cpu["agent"]):
+        if tg != tc_ or ng != nc:
+            raise AssertionError("A: card and CPU agent traces or node orders differ")
+        close(sg, sc, "agent scores")
+    if card["improved"][0] != cpu["improved"][0]:
+        raise AssertionError("A: improved agent traces differ")
+    close(card["improved"][1], cpu["improved"][1], "improved agent scores")
+    if card["rag"][0] != cpu["rag"][0]:
+        raise AssertionError("A: EnhancedRAG contexts differ")
+    close(card["rag"][1], cpu["rag"][1], "EnhancedRAG scores")
+    for k in cpu["grs"]:
+        close(card["grs"][k], cpu["grs"][k], f"GraphRelevanceScorer {k}")
+    for mode, hits in cpu["iface"].items():
+        if [h[0] for h in card["iface"][mode]] != [h[0] for h in hits]:
+            raise AssertionError(f"A: QueryInterface {mode} hits differ")
+        close([h[1] for h in card["iface"][mode]], [h[1] for h in hits], f"QueryInterface {mode}")
+    if card["graph"] != cpu["graph"]:
+        raise AssertionError("A: graph query matches differ")
 
 
 def vocab_texts(words, n: int, seed: int, lo: int = 2, hi: int = 150):
@@ -2025,7 +2460,10 @@ def main() -> int:
     queries = rng.standard_normal((BATCH, DIM)).astype(np.float32)
     queries /= np.linalg.norm(queries, axis=1, keepdims=True)
     ref = brute_force_top_k(index.emb, queries, dev)
-    path_int8(index, graph, queries, ref, dev, card, rec)
+    engine = path_int8(index, graph, queries, ref, dev, card, rec)
+    path_e(engine, dev, card, rec)
+    path_rr(engine, index, dev, card, rec)
+    del engine
     free("int8")
     path_f2(index, graph, queries, ref, dev, card, rec)
     free("F2")
@@ -2035,6 +2473,7 @@ def main() -> int:
     f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
     f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
     engine = path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)
+    path_a(engine, index, graph, dev, card, rec)
     path_m(engine, index, graph, dev, card, rec)
     del engine
     free("M")

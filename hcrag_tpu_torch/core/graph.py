@@ -54,6 +54,18 @@ class CsrGraph:
     def num_nodes(self) -> int:
         return len(self.node_labels)
 
+    @property
+    def num_edges(self) -> int:
+        """Directed edges stored (each symmetrized edge counts twice)."""
+        return int(self.col_idx.shape[0])
+
+    def statistics(self) -> Dict:
+        """Node counts by label and the directed edge counts by type."""
+        nodes: Dict[str, int] = {}
+        for label in self.node_labels:
+            nodes[label] = nodes.get(label, 0) + 1
+        return {"nodes": nodes, "relationships": dict(self.directed_counts)}
+
     def neighbors_of(self, node: int) -> Tuple[np.ndarray, np.ndarray]:
         """(neighbor ids, edge types) of `node`'s edges in creation order."""
         sl = slice(self.row_ptr[node], self.row_ptr[node + 1])

@@ -28,6 +28,16 @@ class QueryIntent(enum.Enum):
     def index(self) -> int:
         return INTENT_ORDER.index(self)
 
+    @classmethod
+    def from_string(cls, s: str) -> "QueryIntent":
+        """The intent named `s` (case and surrounding space ignored);
+        PRODUCT_SEARCH for a name that is not an intent."""
+        s = s.strip().lower()
+        for intent in cls:
+            if intent.value == s:
+                return intent
+        return cls.PRODUCT_SEARCH
+
 
 INTENT_ORDER: List[QueryIntent] = [
     QueryIntent.PRODUCT_SEARCH,
@@ -123,6 +133,40 @@ class CompositeWeights:
                 raise ValueError(
                     f"Weight {field_name} must be non-negative, got {weight}"
                 )
+
+    @classmethod
+    def create_balanced(cls) -> "CompositeWeights":
+        return cls(0.25, 0.25, 0.25, 0.25)
+
+    @classmethod
+    def create_semantic_focused(cls) -> "CompositeWeights":
+        return cls(0.6, 0.2, 0.1, 0.1)
+
+    @classmethod
+    def create_llm_focused(cls) -> "CompositeWeights":
+        return cls(0.2, 0.6, 0.1, 0.1)
+
+    @classmethod
+    def create_entity_focused(cls) -> "CompositeWeights":
+        return cls(0.2, 0.2, 0.4, 0.2)
+
+    @classmethod
+    def from_dict(cls, weights: Dict[str, float]) -> "CompositeWeights":
+        """Weights by field name; a missing name keeps its default."""
+        return cls(
+            semantic_similarity=weights.get("semantic_similarity", 0.3),
+            llm_judge=weights.get("llm_judge", 0.45),
+            entity_match=weights.get("entity_match", 0.15),
+            node_type_priority=weights.get("node_type_priority", 0.10),
+        )
+
+    def to_dict(self) -> Dict[str, float]:
+        return {
+            "semantic_similarity": self.semantic_similarity,
+            "llm_judge": self.llm_judge,
+            "entity_match": self.entity_match,
+            "node_type_priority": self.node_type_priority,
+        }
 
     def as_array(self) -> np.ndarray:
         """Metric order: [semantic, llm, entity, type]."""

@@ -1,7 +1,7 @@
 """Keyword entity extraction and node-type mapping (host side).
 
-Counterpart of the part of `hcrag_tpu/ingest/entities.py` that
-`core/dense_index.py` and `QueryEngine.create_query_input` use.
+Counterpart of the part of `hcrag_tpu/ingest/entities.py` that the index,
+the engine and the pipelines use.
 """
 
 from __future__ import annotations
@@ -31,6 +31,20 @@ def extract_entities_from_content(content: str) -> List[str]:
         words = content.split()[:3]
         found = [w.lower().strip(".,!?") for w in words if len(w) > 2]
     return found[:MAX_ENTITIES]
+
+
+_SIMPLE_STOPWORDS = {"find", "show", "what", "where", "when", "how"}
+
+
+def extract_entities_simple(text: str) -> List[str]:
+    """The first words longer than 3 characters that are not query verbs,
+    lower-cased and stripped of punctuation."""
+    words = [
+        w.lower().strip(".,!?")
+        for w in text.split()
+        if len(w) > 3 and w.lower() not in _SIMPLE_STOPWORDS
+    ]
+    return words[:MAX_ENTITIES]
 
 
 def metadata_node_type(metadata: dict) -> str:
@@ -66,4 +80,20 @@ def infer_query_intent(query: str) -> QueryIntent:
         return QueryIntent.COMPARISON_REQUEST
     if any(w in q for w in ("spec", "specification", "details", "features")):
         return QueryIntent.SPECIFICATION_INQUIRY
+    return QueryIntent.PRODUCT_SEARCH
+
+
+def infer_query_intent_docfirst(query: str) -> QueryIntent:
+    """Keyword intent routing in the other order: document, comparison,
+    specification and support keywords take precedence over the
+    product-search default."""
+    q = query.lower()
+    if any(w in q for w in ("manual", "documentation", "guide", "instruction")):
+        return QueryIntent.DOCUMENT_REQUEST
+    if any(w in q for w in ("compare", "vs", "versus", "difference")):
+        return QueryIntent.COMPARISON_REQUEST
+    if any(w in q for w in ("spec", "specification", "technical", "details")):
+        return QueryIntent.SPECIFICATION_INQUIRY
+    if any(w in q for w in ("help", "support", "troubleshoot", "fix", "problem")):
+        return QueryIntent.TECHNICAL_SUPPORT
     return QueryIntent.PRODUCT_SEARCH

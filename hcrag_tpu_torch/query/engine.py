@@ -83,6 +83,7 @@ from hcrag_tpu_torch.ingest.entities import (
 )
 from hcrag_tpu_torch.models.confidence import encoder_confidence
 from hcrag_tpu_torch.models.embedder import embedder_from_index
+from hcrag_tpu_torch.models.reranker import engine_candidate_features
 from hcrag_tpu_torch.ops.expand import expand_batch_early_exit
 from hcrag_tpu_torch.ops.quantize import (
     quantize_bank,
@@ -199,6 +200,7 @@ class QueryEngine:
         self.index = index
         self.graph = graph
         self._embedder = embedder
+        self.reranker = None  # the final ranking stage of rerank=True (set_reranker)
         # The JAX engine's flag rules: the residual implies int8-only
         # residency; int8-only without it has no rescore source; the f32
         # rescore needs the float copy (and is dropped below for a non-f32
@@ -298,6 +300,19 @@ class QueryEngine:
     # ------------------------------------------------------------------
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return _tensor(a).to(self.device)
+
+    def _put_operand(self, a: np.ndarray) -> torch.Tensor:
+        """A per-call operand (queries, bitsets, weights) on the device
+        without waiting for it: on CUDA the host array is staged in pinned
+        memory and copied on the current stream after the work already
+        queued there (a copy from pageable memory would first wait for
+        that work, which serializes the dispatches of a serving loop).  The
+        pinned block is reused only after the copy (PyTorch's caching host
+        allocator records it on the stream)."""
+        t = _tensor(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _row_pad_multiple(self) -> int:
         """The bank's row multiple (`_row_pad_multiple`): one 2048-row
@@ -691,13 +706,13 @@ class QueryEngine:
         if qh.ndim == 1:
             qh = qh[None, :]
         qh = qh / np.maximum(np.linalg.norm(qh, axis=1, keepdims=True), 1e-12)
-        return self._put(qh)
+        return self._put_operand(qh)
 
     def _type_mask(self, category_filter: Optional[str]) -> torch.Tensor:
         """The row filter [N] bool, sized to the unpadded rows: the bank's
         pad rows stay masked."""
         if category_filter:
-            return self._put(self.index.type_mask(category_filter))
+            return self._put_operand(self.index.type_mask(category_filter))
         return torch.ones((self._n_rows,), dtype=torch.bool, device=self.device)
 
     def retrieve_batch_device(
@@ -744,14 +759,14 @@ class QueryEngine:
         if intents is None:
             intent_ids = torch.zeros((b,), dtype=torch.int64, device=dev)
         else:
-            intent_ids = self._put(np.array([i.index for i in intents], dtype=np.int64))
+            intent_ids = self._put_operand(np.array([i.index for i in intents], dtype=np.int64))
 
         vocab = self.index.vocab
         qb = np.zeros((b, vocab.num_words), dtype=np.uint32)
         qo = np.zeros(b, dtype=np.int32)
         for i, ents in enumerate(entity_lists or ()):
             qb[i], qo[i] = vocab.encode(ents)
-        q_bits, q_oov = self._put(qb.view(np.int32)), self._put(qo)
+        q_bits, q_oov = self._put_operand(qb.view(np.int32)), self._put_operand(qo)
         type_mask = self._type_mask(category_filter)
 
         w, reduction = scorer_spec(scorer_type, weights)
@@ -767,30 +782,71 @@ class QueryEngine:
         if llm_scores is None:
             llm_topk = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
         else:
-            llm_topk = self._put(np.asarray(llm_scores, dtype=np.float32))
+            llm_topk = self._put_operand(np.asarray(llm_scores, dtype=np.float32))
 
         step = self._build_step(top_k, expansion_depth, max_expanded, reduction)
         return step(
-            q, q_bits, q_oov, intent_ids, self._put(w), type_mask, llm_topk,
+            q, q_bits, q_oov, intent_ids, self._put_operand(w), type_mask, llm_topk,
             self._bank(),
         )
 
     def query_batch(
         self, query_embs, *, rerank: bool = False, **kwargs
     ) -> QueryBatchResult:
-        """`query_batch_device`, with the outputs copied to host arrays."""
-        if rerank:
-            raise NotImplementedError(
-                "the learned re-ranker is not ported yet (ROADMAP.md A4)"
-            )
+        """`query_batch_device`, with the outputs copied to host arrays.
+        `rerank=True` reorders each query's top-k by the attached re-ranker
+        (`set_reranker`) as a last host stage."""
         out = self.query_batch_device(query_embs, **kwargs)
         names = (
             "top_scores", "top_indices", "relevance", "combined",
             "expanded_nodes", "expanded_counts", "expanded_relevance",
         )
-        return QueryBatchResult(
+        res = QueryBatchResult(
             **{n: v.cpu().numpy() for n, v in zip(names, out)}
         )
+        if rerank:
+            res = self.rerank_result(
+                res,
+                intents=kwargs.get("intents"),
+                entity_lists=kwargs.get("entity_lists"),
+            )
+        return res
+
+    # ------------------------------------------------------------------
+    # Learned re-ranking (models/reranker.py)
+    # ------------------------------------------------------------------
+    def set_reranker(self, reranker) -> None:
+        """Attach a trained `models.reranker.Reranker` as the final ranking
+        stage of `query_batch(..., rerank=True)`: an MLP over the judge-free
+        metrics, distilled from the judge-inclusive blend, so the order
+        approaches that blend's with no LLM call at query time."""
+        self.reranker = reranker
+
+    def rerank_result(
+        self, res: QueryBatchResult, intents=None, entity_lists=None
+    ) -> QueryBatchResult:
+        """A result's top-k reordered by the re-ranker's scores (stable:
+        ties keep their order); invalid slots (index -1 or a filler score)
+        score -inf and stay last.  Without a re-ranker, `res` as it is."""
+        if self.reranker is None:
+            return res
+        with GLOBAL_TIMER.span("query_batch/rerank"):
+            feats = engine_candidate_features(
+                self, res, intents=intents, entity_lists=entity_lists
+            )
+            scores = self.reranker.score(feats)  # [B, k]
+            invalid = (res.top_indices < 0) | (res.top_scores <= -1e29)
+            scores = np.where(invalid, -np.inf, scores)
+            order = np.argsort(-scores, axis=1, kind="stable")
+            take = lambda a: np.take_along_axis(a, order, axis=1)  # noqa: E731
+            return dataclasses.replace(
+                res,
+                top_scores=take(res.top_scores),
+                top_indices=take(res.top_indices),
+                relevance=take(res.relevance),
+                combined=take(res.combined),
+                rerank_scores=take(scores),
+            )
 
     # ------------------------------------------------------------------
     # Reference-shaped host API

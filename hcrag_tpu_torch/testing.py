@@ -1,4 +1,13 @@
-"""Comparisons of the float selection kernels with their plain versions.
+"""Test fixtures, and comparisons of the float selection kernels with
+their plain versions.
+
+`create_sample_nodes` and `create_sample_query` are the 18 typed demo nodes
+(products, documents, specifications, categories, an annotation; relevant
+to irrelevant for the canonical query) and that query, with embeddings from
+the hashing embedder, the same as the JAX package's `testing.py` gives.  `RowLookupEmbedder`
+encodes a row's own text to the row's stored embedding, so questions over a
+synthetic index of random rows find their rows, as with an encoder that
+knows the corpus.
 
 Kernels B4, B5, B7f and B8 take their f32 dot sums in another order than the
 plain versions' matrix products, so the two agree to rounding, not to the
@@ -31,9 +40,123 @@ that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from hcrag_tpu_torch.core.types import NodeInput, QueryInput, QueryIntent
+from hcrag_tpu_torch.models.embedder import HashingEmbedder
+
+_EMBEDDER = HashingEmbedder()
+
+_FIXTURES = [
+    # (text, node_type, entities)
+    ("Premium Red Mountain Bike - Trail Blazer X1 with advanced suspension "
+     "and lightweight frame, perfect for off-road adventures under $900",
+     "product", ["red mountain bike", "trail", "suspension", "lightweight"]),
+    ("Blue Mountain Bike - Rugged terrain specialist with 21-speed gear "
+     "system, priced at $750",
+     "product", ["blue mountain bike", "terrain", "gear system"]),
+    ("Mountain Bike Maintenance Guide - Complete handbook for maintaining "
+     "your mountain bike including brake adjustments, tire care, and gear "
+     "tuning",
+     "document", ["mountain bike", "maintenance", "brake", "tire"]),
+    ("Red Road Bike - Speed demon for paved roads with aerodynamic design, "
+     "$1200",
+     "product", ["red road bike", "aerodynamic", "speed"]),
+    ("Mountain Bike Frame Specifications - Technical details for aluminum "
+     "and carbon fiber mountain bike frames, weight tolerances and geometry",
+     "specification", ["mountain bike", "frame", "aluminum", "carbon fiber"]),
+    ("Mountain Bikes Category - Off-road bicycles designed for rough "
+     "terrain riding",
+     "category", ["mountain bike", "off-road"]),
+    ("Red Mountain Bike Helmet - Safety certified helmet with ventilation, "
+     "matches red bikes, $85",
+     "product", ["red", "helmet", "safety"]),
+    ("Kitchen Blender 3000 - High-powered blender for smoothies and food "
+     "preparation, $120",
+     "product", ["blender", "kitchen"]),
+    ("Office Chair Assembly Manual - Step-by-step guide for assembling "
+     "ergonomic office chairs",
+     "document", ["office chair", "assembly"]),
+    ("Laptop Computer Specifications - 16GB RAM, 512GB SSD, 14-inch display "
+     "technical specs",
+     "specification", ["laptop", "computer"]),
+    ("Mountain Bike Wheels 29-inch - Tubeless-ready wheels for mountain "
+     "bikes, pair $320",
+     "product", ["mountain bike", "wheel", "tubeless"]),
+    ("Touring Bike Travel Guide - Long distance cycling routes and "
+     "equipment recommendations",
+     "document", ["touring bike", "travel"]),
+    ("Bicycle Brake Pads Specification - Compatibility chart for disc and "
+     "rim brake pads",
+     "specification", ["brake", "bicycle"]),
+    ("Garden Hose 50ft - Flexible watering hose for outdoor use, $35",
+     "product", ["garden hose"]),
+    ("Road Bikes Category - Lightweight bicycles optimized for paved "
+     "surfaces",
+     "category", ["road bike", "lightweight"]),
+    ("Mountain Bike Suspension Service Manual - Fork and shock maintenance "
+     "procedures with torque specifications",
+     "document", ["mountain bike", "suspension", "fork"]),
+    ("Black Mountain Bike Gloves - Padded cycling gloves size M-XL, $25",
+     "product", ["black", "gloves", "mountain bike"]),
+    ("Annotation: Mountain bike geometry diagram Figure 3",
+     "annotation", ["mountain bike", "geometry"]),
+]
+
+
+
+def create_sample_nodes() -> List[NodeInput]:
+    """18 typed fixture nodes with deterministic embeddings."""
+    return [
+        NodeInput(
+            text=text,
+            embeddings=_EMBEDDER.encode([text])[0],
+            graph_relations={"type": node_type},
+            node_type=node_type,
+            entities=entities,
+        )
+        for text, node_type, entities in _FIXTURES
+    ]
+
+
+def create_sample_query(
+    text: str = "Find red mountain bikes under $1000",
+    intent: QueryIntent = QueryIntent.PRODUCT_SEARCH,
+) -> QueryInput:
+    """The canonical demo query with its embedding."""
+    return QueryInput(
+        text=text,
+        embeddings=_EMBEDDER.encode([text])[0],
+        entities=["red mountain bike"],
+        intent=intent,
+    )
+
+
+class RowLookupEmbedder:
+    """Encodes a text equal to an index row's text to that row's stored
+    embedding (the first such row), any other text by the hashing embedder
+    at the index's width.  Host numpy, like the hashing embedder; either
+    package's engine takes it as its `embedder`."""
+
+    def __init__(self, index):
+        self.dim = int(np.asarray(index.emb).shape[1])
+        self._emb = index.emb
+        self._rows = {}
+        for i, text in enumerate(index.texts):
+            self._rows.setdefault(text, i)
+        self._fallback = HashingEmbedder(dim=self.dim)
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        out = np.empty((len(texts), self.dim), np.float32)
+        for j, text in enumerate(texts):
+            row = self._rows.get(text)
+            out[j] = (self._fallback.encode([text])[0] if row is None
+                      else np.asarray(self._emb[row], np.float32))
+        return out
+
 
 NEAR_BOUNDARY = 1e-6
 #: The most the tensor-core dot loop of B5 / B7f may differ from the

@@ -858,3 +858,128 @@ def test_refresh_index_on_card(cuda):
     assert rg.top_indices[:3, 0].tolist() == [5000, 6234, 7999]
     np.testing.assert_array_equal(rg.top_indices, rc.top_indices)
     np.testing.assert_allclose(rg.top_scores, rc.top_scores, atol=1e-5, rtol=0)
+
+
+def _served(engine, q, mode, **kw):
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    ex = BatchedExecutor(engine, top_k=10, mode=mode, **kw)
+    try:
+        futs = ex.submit_many(q)
+        return [f.result(timeout=120) for f in futs], futs, ex
+    finally:
+        ex.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["retrieval", "full"])
+def test_executor_on_card_equals_engine(small_engines, mode):
+    """Four batches of 16 in flight (pipeline depth 3): every request's
+    result equals the card engine's `query_batch` of its batch, bit for
+    bit, and the CPU engine's within 1e-5."""
+    gpu, cpu, q = small_engines
+    got, futs, ex = _served(gpu, q, mode, batch_size=16, pipeline_depth=3, max_wait_ms=50)
+    assert ex.batches_dispatched == 4 and ex.requests_served == 64
+    for lo in range(0, 64, 16):
+        ref = gpu.query_batch(q[lo:lo + 16], top_k=10)
+        rc = cpu.query_batch(q[lo:lo + 16], top_k=10)
+        for i in range(16):
+            r = got[lo + i]
+            scores, indices = (r.top_scores, r.top_indices) if mode == "full" else r
+            np.testing.assert_array_equal(indices, ref.top_indices[i])
+            np.testing.assert_array_equal(scores, ref.top_scores[i])
+            np.testing.assert_array_equal(indices, rc.top_indices[i])
+            np.testing.assert_allclose(scores, rc.top_scores[i], atol=1e-5, rtol=0)
+            if mode == "full":
+                np.testing.assert_array_equal(r.expanded_nodes, ref.expanded_nodes[i])
+                np.testing.assert_array_equal(r.relevance, ref.relevance[i])
+
+
+def test_executor_readback_waits_for_its_own_batch_only(small_engines):
+    """Batch A's step is held ~0.2 s on the card, batch B's ~1 s, both
+    queued before A finishes: A resolves while B still runs (its readback
+    waits on A's event, not on the stream), B about 0.8 s later."""
+    gpu, _, q = small_engines
+
+    class Slow:
+        device = gpu.device
+        calls = 0
+
+        def retrieve_batch_device(self, batch, top_k):
+            Slow.calls += 1
+            torch.cuda._sleep(int((0.2 if Slow.calls == 1 else 1.0) * 1.5e9))
+            return gpu.retrieve_batch_device(batch, top_k=top_k)
+
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    ex = BatchedExecutor(Slow(), batch_size=16, top_k=10, pipeline_depth=3, max_wait_ms=1)
+    try:
+        fa = ex.submit_many(q[:16])
+        fb = ex.submit_many(q[16:32])
+        fa[0].result(timeout=60)
+        busy = not torch.cuda.default_stream(gpu.device).query()
+        fb[0].result(timeout=60)
+    finally:
+        ex.shutdown()
+    assert busy, "batch A resolved only after the stream drained"
+    assert fb[0].resolve_time - fa[0].resolve_time > 0.4
+    ref = gpu.query_batch(q[:32], top_k=10)
+    for i, f in enumerate(fa + fb):
+        np.testing.assert_array_equal(f.result(timeout=1)[1], ref.top_indices[i])
+
+
+def test_reranker_trained_on_card_equals_cpu(cuda, tmp_path):
+    """20 AdamW steps on the card and on the CPU from the same seed: losses
+    within 1e-5 (relative), weight matrices and the first bias within 1e-4,
+    scores centred per query within 1e-4 (the later biases move in the
+    loss's shift-invariant directions, see tests/test_torch_reranker.py);
+    the card's checkpoint restores on the CPU with scores within 1e-6."""
+    from hcrag_tpu_torch.models.reranker import Reranker
+
+    card, host = Reranker(seed=3, device=cuda), Reranker(seed=3, device="cpu")
+    rng = np.random.default_rng(1)
+    for _ in range(20):
+        f = rng.uniform(size=(8, 12, 5)).astype(np.float32)
+        lab = (10 * rng.uniform(size=(8, 12))).astype(np.float32)
+        m = rng.uniform(size=(8, 12)) > 0.15
+        a, b = card.train_step(f, lab, m), host.train_step(f, lab, m)
+        assert abs(a - b) <= 1e-5 * abs(b)
+    (cp, co), (hp, ho) = card.train_state(), host.train_state()
+    for i in (0, 1, 3, 5):  # Dense_0 bias, the three kernels
+        np.testing.assert_allclose(cp[i], hp[i], atol=1e-4, rtol=0)
+    assert int(co[0]) == int(ho[0]) == 20
+    feats = rng.uniform(size=(6, 12, 5)).astype(np.float32)
+    sc, sh = card.score(feats), host.score(feats)
+    np.testing.assert_allclose(sc - sc.mean(-1, keepdims=True), sh - sh.mean(-1, keepdims=True),
+                               atol=1e-4, rtol=0)
+    card.save(tmp_path / "card.npz", step=20)
+    back = Reranker(seed=9, device="cpu")
+    assert back.restore(tmp_path / "card.npz") == 20
+    np.testing.assert_allclose(back.score(feats), sc, atol=1e-6, rtol=0)
+
+
+def test_agent_on_card_equals_cpu(cuda):
+    """The retrieval agent over a small engine on the card and on the CPU:
+    the same trace, sampled ids, final nodes and scores within 1e-5, and
+    its scoring stage took no fallback."""
+    from hcrag_tpu_torch import config as cfg
+    from hcrag_tpu_torch.pipeline.agent import RetrievalAgent
+    from hcrag_tpu_torch.pipeline.llm import LLMClient
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import RowLookupEmbedder
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(5000, 384, graph_degree=4)
+    results = []
+    for dev in (cuda, "cpu"):
+        conf = cfg.RuntimeConfig(random_seed=5, llm_base_url="")
+        engine = QueryEngine(index, graph, device=dev, ell_max_degree=8,
+                             embedder=RowLookupEmbedder(index))
+        agent = RetrievalAgent(engine, client=LLMClient(conf), config=conf)
+        ids = agent.sample_nodes({})["sampled_nodes"]
+        results.append((ids, agent.run(f"synthetic row {ids[0]}")))
+    (ig, rg), (ic, rc) = results
+    assert ig == ic and rg.node_trace == rc.node_trace
+    assert rg.expanded_scored_nodes, "the scoring stage fell back"
+    assert [n.text for n in rg.final_relevant_nodes] == [n.text for n in rc.final_relevant_nodes]
+    np.testing.assert_allclose([n.score for n in rg.final_relevant_nodes],
+                               [n.score for n in rc.final_relevant_nodes], atol=1e-5, rtol=0)
