@@ -49,6 +49,31 @@ last line:
                128 at d 128 and 384, and the small-pool pick raise, B7f on
                normal inputs by `testing.py`'s rule, and the supertile
                merge's routing (B2 from 1024);
+  3b. build  — the offline build path, from corpora written from a seed
+               (`testing.write_adventureworks_corpus`), after g++ builds the
+               native host libraries:
+     path B  — the reference-sized corpus (7 CSVs, 4 PDFs, 6 JSON
+               tables, 3 JPGs): the CLI on the card as subprocesses, `build`
+               and `extract-graph` at once, then `stats`, `query`, `viz` and
+               `graph-html` over the saved artifacts at once, each exiting
+               0; then `build_adventureworks` and the default engine in this
+               process: `process_query` launches B4 once a call, equals the
+               CPU engine (rows exact, scores within 1e-5), and the CLI's
+               reloaded artifacts give the same results;
+     path G  — `PropertyGraphBuilder("auto")` over that corpus,
+               `build_graph_index`, the default engine on the card,
+               `query_batch` B=64 with expansion (B4 once), card == CPU;
+     path B at scale — the same schema with the order and catalogue
+               tables at the AdventureWorks OLTP sample's row counts
+               (~155,000 index rows): the graph index build time by stage
+               (host clock; the native embedder must have built) and the
+               peak host RSS; then 1024 of the index's own texts, encoded by
+               the built embedder, through the default engine (B4 once,
+               gated by `testing.check_exact_topk` against f32 brute force)
+               and the int8 + f32 rescore engine (B1 once; its 760-candidate
+               pool takes no B2; equal to the CPU on 64 queries), recall@10
+               of each and ms per step (CUDA events), B4 and B1 against their
+               plain versions at these shapes;
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
@@ -104,7 +129,8 @@ last line:
                within 1e-4 of the CPU on 8 texts), their embeddings through
                `query_batch` (one B4 launch), `process_query` on text, and
                the encoder confidence over a 100,000-row slice (the auto
-               rule's limit), on the host clock;
+               rule's limit), on the host clock; the WordPiece tokenizer's
+               texts/s on the same texts, native and Python (ids equal);
      path X  — the same rows with a degree-8 graph, `exact_rescore=32`,
                top_k=100, depth 3, B=256 (the JAX repo's expansion-heavy
                deployment): B5 at per-tile k = 100, B2 over 489 x 100 -> 100;
@@ -1100,9 +1126,11 @@ def merge_at_path(vals, idxs, out_k, label, card, rec) -> None:
     rec.kernel("packed_candidate_merge", label, ms, plain_ms, bound, lib_ms)
 
 
-def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3):
+def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
+                         with_merge=True):
     """B1 and B2 at the path's shapes against their plain versions (bit for
-    bit), then their times beside their plain versions' and bounds."""
+    bit), then their times beside their plain versions' and bounds; B2 only
+    `with_merge` (a pool under 4096 candidates takes no kernel)."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.ops.quantize import quantize_queries
 
@@ -1127,7 +1155,8 @@ def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3):
         f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
         f"by {b1_bound[1]}; {card})")
     rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
-    merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec)
+    if with_merge:
+        merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec)
 
 
 def path_int8(index, graph, queries, ref, dev, card, rec) -> None:
@@ -1625,7 +1654,6 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
     over it."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.query.engine import QueryEngine
-    from hcrag_tpu_torch.testing import check_exact_topk
 
     t0 = time.time()
     engine = QueryEngine(index, graph, ell_max_degree=8)  # the default: cuda, f32
@@ -1680,15 +1708,25 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
         raise AssertionError("retrieve_batch_device gave a bad result")
     check_small_against_cpu(dev, "F1", dict(ell_max_degree=8))
     time_step(engine, dq, "F1", card, reps=5)
+    b4_at_path(engine, dq, "F1", card, rec)
+    return engine
+
+
+def b4_at_path(engine, dq, label, card, rec) -> None:
+    """B4 at the path's shapes (the engine's f32 bank, queries `dq`)
+    against its plain version by `testing.check_exact_topk`, then its time
+    beside the plain version's, its bound and the dots alone."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.testing import check_exact_topk
 
     e = engine.d_emb
-    n_bank = e.shape[0]
-    mask = path_mask(n_bank, N_ROWS, dev)
+    n_bank, b = e.shape[0], dq.shape[0]
+    mask = path_mask(n_bank, engine._n_rows, dq.device)
     kv, ki = tc.float_tile_topk(dq, e, mask, TOP_K)
     pv, pi = tc.float_tile_topk_plain(dq, e, mask, TOP_K)
     err, moved = check_exact_topk(kv, ki, pv, pi, dq, e, mask)
     rec.err("float_tile_topk", err)
-    log(f"[F1] B4 at the path's shapes: agrees with its plain version "
+    log(f"[{label}] B4 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} indices at near-ties)")
     b4_ms = cuda_ms(lambda: tc.float_tile_topk(dq, e, mask, TOP_K), reps=3)
     b4_plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(dq, e, mask, TOP_K), reps=1)
@@ -1696,15 +1734,14 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
     # (TF32 is off), not the same function.
     dots_ms = cuda_ms(lambda: torch.matmul(dq, e.T), reps=3)
     tiles = -(-n_bank // 2048)
-    b4_bytes = 4 * dq.numel() + 4 * e.numel() + mask.numel() + 8 * F1_BATCH * tiles * TOP_K
-    b4_bound = bound_ms(2.0 * F1_BATCH * n_bank * DIM, "f32", b4_bytes)
-    log(f"[F1] B4 float_tile_topk B={F1_BATCH} N={n_bank} tiles={tiles} f32: "
+    b4_bytes = 4 * dq.numel() + 4 * e.numel() + mask.numel() + 8 * b * tiles * TOP_K
+    b4_bound = bound_ms(2.0 * b * n_bank * e.shape[1], "f32", b4_bytes)
+    log(f"[{label}] B4 float_tile_topk B={b} N={n_bank} tiles={tiles} f32: "
         f"{b4_ms:.3f} ms (plain {b4_plain_ms:.3f} ms, bound {b4_bound[0]:.3f} ms by "
         f"{b4_bound[1]}; dots alone, not the same function: torch.matmul in f32 "
-        f"{dots_ms:.3f} ms; launches on the path {rec.launches['F1']['float_tile_topk']}; "
+        f"{dots_ms:.3f} ms; launches on the path {rec.launches[label]['float_tile_topk']}; "
         f"{card})")
-    rec.kernel("float_tile_topk", "F1", b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
-    return engine
+    rec.kernel("float_tile_topk", label, b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
 
 
 def _agent_questions(graph, seed: int, index):
@@ -1893,6 +1930,19 @@ def path_m(engine, index, graph, dev, card, rec) -> None:
     words = [w for w in enc.tokenizer.vocab if w.isalpha()]
     texts = vocab_texts(words, M_TEXTS, seed=21)
     cpu = load_distilled_embedder(device="cpu")
+    tok = enc.tokenizer
+    if tok._native_tokenizer() is None:
+        raise AssertionError("M: the native WordPiece tokenizer did not build")
+    t0 = time.perf_counter()
+    ids_n, mask_n = tok.encode_batch(texts, max_len=64)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_p, mask_p = tok._encode_batch_py(texts, 64)
+    py_s = time.perf_counter() - t0
+    if not (np.array_equal(ids_n, ids_p) and np.array_equal(mask_n, mask_p)):
+        raise AssertionError("M: native and Python WordPiece ids differ")
+    log(f"[M] WordPiece on {M_TEXTS} texts at max_len 64: native {M_TEXTS / native_s:.0f} "
+        f"texts/s, Python {M_TEXTS / py_s:.0f} texts/s (host clock), ids equal")
     embs = {}
     for max_len in (64, 192):
         t0 = time.perf_counter()
@@ -2378,6 +2428,270 @@ def path_k(dev, card, rec) -> None:
                res["library_int8_matmul"])
 
 
+# ---------------------------------------------------------------------------
+# The offline build path: corpus -> graph + index -> CLI and engine
+# ---------------------------------------------------------------------------
+
+B_QUERY = "mountain bike frame"
+B_SCALE_QUERIES = 1024  # path B at scale: the index's own texts, encoded
+
+
+def run_cli_group(commands, label: str, timeout: float = 300.0) -> None:
+    """Run `python -m hcrag_tpu_torch.cli <args>` for each argument list
+    at once, each on the CLI's default device, the card; every one must
+    exit 0."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    procs = [(args, subprocess.Popen(
+        [sys.executable, "-m", "hcrag_tpu_torch.cli", *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for args in commands]
+    failed = []
+    for args, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        log(f"[{label}] cli {args[0]}: exit {proc.returncode}; "
+            f"{len(lines)} lines; first: {lines[0][:150] if lines else ''!r}")
+        if proc.returncode != 0:
+            failed.append((args[0], err[-2000:]))
+    log(f"[{label}] {len(commands)} CLI processes in {time.time() - t0:.1f} s (wall, in parallel)")
+    if failed:
+        raise AssertionError(f"{label}: CLI commands failed: {failed}")
+
+
+def same_results(got, want, label: str, atol: float = 1e-5) -> None:
+    """Two `process_query` outputs: the same rows in the same order,
+    similarity scores within `atol`."""
+    gr = [r["metadata"]["id"] for r in got["results"]]
+    wr = [r["metadata"]["id"] for r in want["results"]]
+    if gr != wr:
+        raise AssertionError(f"{label}: rows {gr} != {wr}")
+    diff = max((abs(a["similarity_score"] - b["similarity_score"])
+                for a, b in zip(got["results"], want["results"])), default=0.0)
+    if not diff <= atol:
+        raise AssertionError(f"{label}: scores differ by {diff} > {atol}")
+
+
+def same_batch(got, want, label: str, atol: float = 1e-5) -> None:
+    for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"{label} {f}")
+    for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f), atol=atol, rtol=0,
+                                   err_msg=f"{label} {f}")
+
+
+def path_b(dev, card, rec, tmp: str) -> None:
+    """Path B: the reference-sized corpus (written from a seed) through the
+    CLI on the card, `build` and `extract-graph` first, then `stats`,
+    `query`, `viz` and `graph-html` over the saved artifacts; then in this
+    process `build_adventureworks` and the default engine on the card:
+    `process_query` launches B4 once a call and equals the same engine on
+    the CPU; the artifacts reloaded give the same results."""
+    from hcrag_tpu_torch.core.dense_index import DenseIndex
+    from hcrag_tpu_torch.core.graph import CsrGraph
+    from hcrag_tpu_torch.ingest.adventureworks import build_adventureworks
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import REFERENCE_ROWS, write_adventureworks_corpus
+
+    data = write_adventureworks_corpus(f"{tmp}/b_corpus", seed=0, rows=REFERENCE_ROWS)
+    art = f"{tmp}/b_artifacts"
+    run_cli_group([["build", "--data", str(data), "--out", art],
+                   ["extract-graph", "--data", str(data), "--out", f"{tmp}/b_extract"]], "B")
+    run_cli_group([["stats", "--artifacts", art],
+                   ["query", B_QUERY, "--artifacts", art, "--threshold", "0.0"],
+                   ["viz", B_QUERY, "--artifacts", art, "--out", f"{tmp}/b_viz.html"],
+                   ["graph-html", "--artifacts", art, "--out", f"{tmp}/b_kg.html"]], "B")
+
+    t0 = time.time()
+    bundle = build_adventureworks(data)
+    build_s = time.time() - t0
+    engine = QueryEngine(bundle.index, bundle.graph, device=dev)
+    cpu = QueryEngine(bundle.index, bundle.graph, device="cpu")
+    log(f"[B] build_adventureworks: {bundle.index.n} rows x {bundle.index.dim}, graph "
+        f"{bundle.graph.statistics()['nodes']}, {bundle.graph.num_edges} directed edges, "
+        f"{build_s:.2f} s (host)")
+    questions = [B_QUERY, "red helmet", "Jersey Care Guide sizes", bundle.index.texts[7]]
+    zero_counts()
+    outs = [engine.process_query(q, top_k=TOP_K, similarity_threshold=0.0) for q in questions]
+    rec.launches["B"] = read_counts()
+    if rec.launches["B"]["float_tile_topk"] != len(questions):
+        raise AssertionError(f"B: {len(questions)} process_query calls launched B4 "
+                             f"{rec.launches['B']['float_tile_topk']} times")
+    for q, out in zip(questions, outs):
+        same_results(out, cpu.process_query(q, top_k=TOP_K, similarity_threshold=0.0),
+                     f"B card vs CPU {q[:30]!r}")
+    if not all(out["results"] for out in outs):
+        raise AssertionError("B: a process_query call found nothing at threshold 0")
+    log(f"[B] process_query x{len(questions)} on the card: B4 once a call "
+        f"(launches {rec.launches['B']}); card == CPU (rows exact, scores within 1e-5); "
+        f"{outs[0]['summary']}")
+    loaded = QueryEngine(DenseIndex.load(art), CsrGraph.load(art), device=dev)
+    for q, out in zip(questions, outs):
+        same_results(loaded.process_query(q, top_k=TOP_K, similarity_threshold=0.0), out,
+                     f"B reloaded {q[:30]!r}", atol=0.0)
+    log(f"[B] the CLI's saved artifacts reloaded: the same results as the in-memory "
+        f"bundle; {card}")
+
+
+def path_b_scale(dev, card, rec, tmp: str) -> None:
+    """Path B at scale: the same schema with the order and catalogue tables
+    at the AdventureWorks OLTP sample's row counts; the graph index build
+    timed by stage (host clock), then 1024 of the index's own texts through
+    the default engine (B4) and the int8 + f32 rescore engine (B1; the pool
+    of 76 tiles x 10 is under B2's 4096 candidates), recall@10 against f32
+    brute force and ms per step by CUDA events."""
+    from hcrag_tpu_torch import native
+    from hcrag_tpu_torch.core.dense_index import DenseIndex
+    from hcrag_tpu_torch.core.graph import CsrGraph
+    from hcrag_tpu_torch.ingest import adventureworks as aw
+    from hcrag_tpu_torch.models.embedder import HashingEmbedder, embedder_from_index
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import OLTP_ROWS, check_exact_topk, write_adventureworks_corpus
+
+    t0 = time.time()
+    data = write_adventureworks_corpus(f"{tmp}/bs_corpus", seed=1, rows=OLTP_ROWS)
+    log(f"[Bs] corpus written in {time.time() - t0:.1f} s (host): {OLTP_ROWS}")
+    if not native.available():
+        raise AssertionError("Bs: the native host library did not build")
+    stages = {}
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        stages[name] = time.perf_counter() - t
+        return out
+
+    csv_data = stage("load_csv", lambda: aw.load_csv_data(data))
+    docs = stage("documents", lambda: aw.analyze_ingested_documents(data))
+    graph = stage("build_graph", lambda: aw.build_graph(csv_data, docs))
+    texts, metadata = stage("process_corpus", lambda: aw.process_corpus(data))
+    embedder = HashingEmbedder()
+    emb = stage("embed", lambda: embedder.fit(texts).encode(texts))
+    graph_ids, node_to_row = stage("link", lambda: aw.link_index_and_graph(metadata, graph))
+    graph.node_to_row = node_to_row
+    info = {"embedder_state": embedder.state_dict(), "model_name": "HashingEmbedder.encode",
+            "total_entries": len(texts), "embedding_dimension": int(emb.shape[1])}
+    index = stage("DenseIndex.build", lambda: DenseIndex.build(
+        emb, metadata, texts, graph_ids=graph_ids, generation_info=info))
+
+    def save_load():
+        index.save(f"{tmp}/bs_artifacts")
+        graph.save(f"{tmp}/bs_artifacts")
+        return DenseIndex.load(f"{tmp}/bs_artifacts"), CsrGraph.load(f"{tmp}/bs_artifacts")
+
+    index, graph = stage("save+load", save_load)
+
+    def engine_on_card():
+        e = QueryEngine(index, graph, device=dev)
+        torch.cuda.synchronize()
+        return e
+
+    engine = stage("engine on the card", engine_on_card)
+    total = sum(stages.values())
+    log(f"[Bs] graph index build time {total:.3f} s (host clock) for {index.n} rows x "
+        f"{index.dim}, {graph.num_nodes} graph nodes, {graph.num_edges} directed edges "
+        f"({graph.statistics()['relationships']}); peak host RSS {host_rss_gib():.2f} GiB; {card}")
+    for name, sec in stages.items():
+        log(f"[Bs]   {name:20s} {sec:8.3f} s  {100 * sec / total:5.1f}%")
+    log(f"[Bs]   embedding: {len(texts) / stages['embed']:.0f} texts/s (native fit + encode)")
+
+    rng = np.random.default_rng(3)
+    rows = np.sort(rng.choice(index.n, size=B_SCALE_QUERIES, replace=False))
+    q_texts = [index.texts[int(r)] for r in rows]
+    queries = embedder_from_index(index).encode(q_texts).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    d_emb = torch.from_numpy(np.asarray(index.emb, np.float32)).to(dev)
+    dq = torch.from_numpy(queries).to(dev)
+    s = dq @ d_emb.T
+    order = torch.sort(s, dim=1, descending=True, stable=True).indices[:, :TOP_K]
+    ref_v, ref_i = s.gather(1, order), order
+    del s
+
+    zero_counts()
+    res = engine.query_batch(queries, top_k=TOP_K)
+    rec.launches["Bs"] = read_counts()
+    if rec.launches["Bs"]["float_tile_topk"] != 1:
+        raise AssertionError(f"Bs: query_batch launched B4 "
+                             f"{rec.launches['Bs']['float_tile_topk']} times, not once")
+    check_result(res, B_SCALE_QUERIES, index.n)
+    mask = torch.ones(index.n, dtype=torch.bool, device=dev)
+    err, moved = check_exact_topk(
+        torch.from_numpy(res.top_scores).to(dev), torch.from_numpy(res.top_indices).to(dev),
+        ref_v, ref_i, dq, d_emb, mask)
+    r = recall(ref_i.cpu().numpy(), res.top_indices)
+    step_ms = cuda_ms(lambda: engine.query_batch_device(dq, top_k=TOP_K), reps=5)
+    log(f"[Bs] default engine (B4): recall@10 {r:.4f} against f32 brute force over "
+        f"{B_SCALE_QUERIES} queries; equal to brute force by testing.check_exact_topk "
+        f"(max |err| {err:.3g}, {moved} indices at near-ties); step {step_ms:.3f} ms "
+        f"(CUDA events, B={B_SCALE_QUERIES}); launches {rec.launches['Bs']}; {card}")
+    b4_at_path(engine, dq, "Bs", card, rec)
+    del engine
+    free("Bs default engine")
+
+    opts = dict(quantize_int8=True, int8_rescore=RESCORE, int8_f32_rescore=True)
+    engine = QueryEngine(index, graph, device=dev, **opts)
+    zero_counts()
+    res8 = engine.query_batch(queries, top_k=TOP_K)
+    rec.launches["Bs8"] = read_counts()
+    if rec.launches["Bs8"]["int8_tile_topk"] != 1 or rec.launches["Bs8"]["packed_candidate_merge"]:
+        raise AssertionError(f"Bs8: launches {rec.launches['Bs8']}: B1 once and no B2 "
+                             "(a pool under 4096 candidates) expected")
+    check_result(res8, B_SCALE_QUERIES, index.n)
+    cpu8 = QueryEngine(index, graph, device="cpu", **opts).query_batch(queries[:64], top_k=TOP_K)
+    card8 = engine.query_batch(queries[:64], top_k=TOP_K)
+    same_batch(card8, cpu8, "Bs8 card vs CPU")
+    r8 = recall(ref_i.cpu().numpy(), res8.top_indices)
+    step8_ms = cuda_ms(lambda: engine.query_batch_device(dq, top_k=TOP_K), reps=5)
+    log(f"[Bs8] int8 + f32 rescore engine (B1): recall@10 {r8:.4f} against f32 brute force "
+        f"over {B_SCALE_QUERIES} queries (no gate: a finding); card == CPU plain route on 64 "
+        f"queries; step {step8_ms:.3f} ms (CUDA events); launches {rec.launches['Bs8']}; {card}")
+    int8_kernels_at_path(engine, dq, "Bs8", card, rec, RESCORE, with_merge=False)
+    del engine, d_emb, dq
+
+
+def path_g(dev, card, rec, tmp: str) -> None:
+    """Path G: the offline path-extraction graph over the reference-sized
+    corpus (`PropertyGraphBuilder("auto")`), `build_graph_index`, the
+    default engine on the card over it and `query_batch` with expansion
+    (B4 once), equal to the CPU engine."""
+    from hcrag_tpu_torch.ingest.path_extract import PropertyGraphBuilder, build_graph_index
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    data = f"{tmp}/b_corpus"  # path B's
+    t0 = time.perf_counter()
+    store = PropertyGraphBuilder("auto").build(data)
+    extract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index, csr, names = build_graph_index(store)
+    index_s = time.perf_counter() - t0
+    log(f"[G] PropertyGraphBuilder('auto'): {store.num_nodes} nodes, {store.num_triples} "
+        f"triples, {len(names)} relation types in {extract_s:.2f} s; build_graph_index: "
+        f"{index.n} rows x {index.dim} in {index_s:.2f} s (host)")
+    engine = QueryEngine(index, csr, device=dev)
+    rng = np.random.default_rng(4)
+    rows = rng.choice(index.n, size=64, replace=False)
+    queries = np.asarray(index.emb, np.float32)[rows]
+    zero_counts()
+    res = engine.query_batch(queries, top_k=TOP_K, expansion_depth=1)
+    rec.launches["G"] = read_counts()
+    if rec.launches["G"]["float_tile_topk"] != 1:
+        raise AssertionError(f"G: launches {rec.launches['G']}")
+    check_result(res, len(rows), index.n)
+    if (res.top_scores[:, 0] < 1 - 1e-5).any() or not res.expanded_counts.any():
+        raise AssertionError("G: a node's own row did not score 1 first, or nothing "
+                             "was expanded")
+    same_batch(res, QueryEngine(index, csr, device="cpu").query_batch(
+        queries, top_k=TOP_K, expansion_depth=1), "G card vs CPU")
+    log(f"[G] query_batch B=64 depth 1 on the card: B4 once (launches {rec.launches['G']}), "
+        f"{int(res.expanded_counts.sum())} nodes expanded; card == CPU; {card}")
+
+
 def free(label: str) -> None:
     import gc
 
@@ -2450,6 +2764,22 @@ def main() -> int:
     phase_super_kernels(dev, max_err)
     phase_sweep_kernels(dev, max_err)
     rec = Record(max_err)
+
+    # the offline build path: corpus -> graph + index -> CLI and engine ----
+    import tempfile
+
+    from hcrag_tpu_torch import native
+
+    t0 = time.time()
+    built = native.build()
+    log(f"[build] native host libraries {built} in {time.time() - t0:.1f} s (g++)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        path_b(dev, card, rec, tmp)
+        path_g(dev, card, rec, tmp)
+        path_b_scale(dev, card, rec, tmp)
+        log(f"[B] paths B, G and B at scale in {time.time() - t0:.1f} s")
+    free("B")
 
     # 4-7. the paths over one 1M-row index --------------------------------------
     t0 = time.time()

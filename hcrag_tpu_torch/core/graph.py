@@ -1,10 +1,11 @@
 """CsrGraph — the property graph as host arrays.
 
-Counterpart of `hcrag_tpu/core/graph.py` (the part the batched query step
-needs: `CsrGraph.from_edges`, `CsrGraph.to_ell`, `CsrGraph.neighbors_of`
-and `EllAdjacency`).  The
-graph is built and lowered on the host with numpy; the engine uploads the
-padded ELL neighbor tables to the device.
+Counterpart of `hcrag_tpu/core/graph.py`: `CsrGraph.from_edges`, `to_ell`,
+`neighbors_of`, `statistics`, `save` / `load` (the same `graph.npz` +
+`graph_meta.json` directory, so a graph saved by either package loads in
+the other) and `EllAdjacency`.  The graph is built and lowered on the host
+with numpy; the engine uploads the padded ELL neighbor tables to the
+device.
 
   * ``row_ptr``  [G+1] int32 — CSR offsets over symmetrized edges
   * ``col_idx``  [E]   int32 — neighbor node ids
@@ -14,6 +15,8 @@ padded ELL neighbor tables to the device.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +31,10 @@ class EllAdjacency:
     neighbors: np.ndarray  # [G, max_deg] int32, -1 padding
     etypes: np.ndarray  # [G, max_deg] int8, -1 padding
     degrees: np.ndarray  # [G] int32 (true degree, may exceed max_deg)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.neighbors.shape[1])
 
 
 @dataclasses.dataclass
@@ -179,3 +186,46 @@ class CsrGraph:
         neighbors[kept_src[sel], slot[sel]] = kept_dst[sel]
         etypes[kept_src[sel], slot[sel]] = kept_type[sel]
         return EllAdjacency(neighbors=neighbors, etypes=etypes, degrees=degrees_all)
+
+    # --- persistence --------------------------------------------------------
+    def save(self, directory) -> None:
+        """`graph.npz` (the arrays) and `graph_meta.json` (labels, keys as
+        strings, texts, counts, vocabulary) under `directory`."""
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            directory / "graph.npz",
+            row_ptr=self.row_ptr,
+            col_idx=self.col_idx,
+            edge_type=self.edge_type,
+            node_to_row=self.node_to_row,
+        )
+        with open(directory / "graph_meta.json", "w") as f:
+            json.dump(
+                {
+                    "node_labels": self.node_labels,
+                    "node_keys": [str(k) for k in self.node_keys],
+                    "node_texts": self.node_texts,
+                    "directed_counts": self.directed_counts,
+                    "edge_type_vocab": self.edge_type_vocab,
+                },
+                f,
+            )
+
+    @classmethod
+    def load(cls, directory) -> "CsrGraph":
+        directory = Path(directory)
+        arrays = np.load(directory / "graph.npz")
+        with open(directory / "graph_meta.json") as f:
+            meta = json.load(f)
+        return cls(
+            row_ptr=arrays["row_ptr"],
+            col_idx=arrays["col_idx"],
+            edge_type=arrays["edge_type"],
+            node_labels=meta["node_labels"],
+            node_keys=meta["node_keys"],
+            node_texts=meta["node_texts"],
+            node_to_row=arrays["node_to_row"],
+            directed_counts=meta.get("directed_counts", {}),
+            edge_type_vocab=meta.get("edge_type_vocab"),
+        )

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -257,6 +257,14 @@ def edge_type_id(name: str) -> int:
 
 #: Relationship whitelist followed by subgraph expansion.
 EXPANSION_EDGE_TYPES = ("ANNOTATION", "DESCRIBED_BY")
+
+
+def edge_type_mask(names: Sequence[str]) -> int:
+    """Bitmask over EDGE_TYPES of the named types."""
+    mask = 0
+    for n in names:
+        mask |= 1 << edge_type_id(n)
+    return mask
 
 
 @dataclasses.dataclass

@@ -10,7 +10,7 @@ in the vocabulary never match a node entity, but they still count toward
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -45,6 +45,13 @@ class EntityVocab:
     def num_words(self) -> int:
         # At least one word so bitset arrays always have a trailing dim.
         return max(1, (self.size + WORD_BITS - 1) // WORD_BITS)
+
+    def entities(self) -> List[str]:
+        """The entities in bit order."""
+        out = [""] * self.size
+        for e, i in self.entity_to_id.items():
+            out[i] = e
+        return out
 
     def encode(self, entities: Sequence[str]) -> Tuple[np.ndarray, int]:
         """Encode one entity set -> (bits [num_words] uint32, oov_count),

@@ -1,10 +1,11 @@
 """Text embedders.
 
-Counterpart of `HashingEmbedder`, `embedder_from_index` and
-`default_embedder` in `hcrag_tpu/models/embedder.py`, on its pure-Python
-path (the JAX package's native C++ tokenizer computes the same features).
-`HashingEmbedder` is a deterministic feature-hashed bag of words + bigrams,
-L2-normalized, with optional IDF weights.  An index built from MiniLM
+Counterpart of `TextEmbedder`, `HashingEmbedder`, `embedder_from_index`
+and `default_embedder` in `hcrag_tpu/models/embedder.py`.  `fit` and
+`encode` run the native C++ library (`native/fasthash.cpp`) where it
+builds, else the Python path (`encode_one`), which computes the same
+features.  `HashingEmbedder` is a deterministic feature-hashed bag of
+words + bigrams, L2-normalized, with optional IDF weights.  An index built from MiniLM
 vectors gets the distilled MiniLM encoder (`models/minilm.py`), on the
 caller's device, so that query text embeds into the rows' space.
 """
@@ -12,11 +13,20 @@ caller's device, so that query text embeds into the rows' space.
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Sequence
+from typing import List, Optional, Protocol, Sequence
 
 import numpy as np
 
 from hcrag_tpu_torch.config import EMBED_DIM
+
+
+class TextEmbedder(Protocol):
+    """An embedder: `dim` and a batched `encode(texts) -> [N, dim]`."""
+
+    dim: int
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray: ...
+
 
 _TOKEN_RE = re.compile(r"[a-z0-9]+")
 
@@ -55,10 +65,14 @@ class HashingEmbedder:
         return feats
 
     def fit(self, corpus: Sequence[str]) -> "HashingEmbedder":
-        df = np.zeros(self.dim, dtype=np.int64)
-        for text in corpus:
-            for b in {_stable_hash(f) % self.dim for f in self._features(text)}:
-                df[b] += 1
+        from hcrag_tpu_torch import native
+
+        df = native.bucket_df(corpus, self.dim, use_bigrams=self.use_bigrams)
+        if df is None:  # the Python path
+            df = np.zeros(self.dim, dtype=np.int64)
+            for text in corpus:
+                for b in {_stable_hash(f) % self.dim for f in self._features(text)}:
+                    df[b] += 1
         self.bucket_df = df
         self.n_docs = len(corpus)
         return self
@@ -78,7 +92,19 @@ class HashingEmbedder:
         norm = np.linalg.norm(vec)
         return vec / norm if norm > 0 else vec
 
+    def _idf_weights(self) -> Optional[np.ndarray]:
+        if self.bucket_df is None:
+            return None
+        return np.log1p(self.n_docs / (1.0 + self.bucket_df.astype(np.float64)))
+
     def encode(self, texts: Sequence[str]) -> np.ndarray:
+        from hcrag_tpu_torch import native
+
+        out = native.embed_batch(
+            texts, self.dim, use_bigrams=self.use_bigrams, idf=self._idf_weights()
+        )
+        if out is not None:
+            return out
         return np.stack([self.encode_one(t) for t in texts], axis=0)
 
     # --- persistence (rides in DenseIndex.generation_info) ----------------
@@ -119,6 +145,6 @@ def embedder_from_index(index, device=None):
     return default_embedder(index.dim)
 
 
-def default_embedder(dim: int = EMBED_DIM) -> HashingEmbedder:
+def default_embedder(dim: int = EMBED_DIM) -> TextEmbedder:
     """The default embedder: the hashing embedder."""
     return HashingEmbedder(dim=dim)

@@ -2,7 +2,8 @@
 
 Counterpart of `hcrag_tpu/models/minilm.py`: `MiniLMConfig`,
 `TransformerLayer` and `MiniLMEncoder` as `torch.nn.Module`s, the
-`SimpleTokenizer` and the `WordPieceTokenizer` (its Python path), the
+`SimpleTokenizer` and the `WordPieceTokenizer` (native C++ where it
+builds, `native/wordpiece.cpp`, else Python), the
 embedder (`MiniLMEmbedder`: `encode`, `load_params`, `save_params`) and
 `load_distilled_embedder`, which reads the distilled weights committed under
 `tools/minilm_distilled*`.
@@ -247,8 +248,8 @@ class SimpleTokenizer:
 
 class WordPieceTokenizer:
     """Greedy longest-match-first WordPiece (BERT's tokenization) over a
-    vocab.txt, in Python (the JAX package's C++ tokenizer computes the same
-    ids)."""
+    vocab.txt: the C++ tokenizer (`native.NativeWordPiece`) where it
+    builds, else the Python path, which computes the same ids."""
 
     def __init__(self, vocab_path: str, max_len: int = 128, lowercase: bool = True):
         self.vocab = {}
@@ -261,6 +262,21 @@ class WordPieceTokenizer:
         self.sep_id = self.vocab.get("[SEP]", 102)
         self.unk_id = self.vocab.get("[UNK]", 100)
         self.vocab_size = len(self.vocab)
+        self._native = None
+        self._native_tried = False
+
+    def _native_tokenizer(self):
+        """The C++ tokenizer over this vocabulary, built at first use; None
+        (the Python path) without a toolchain.  It lowercases ASCII only,
+        where `str.lower` is full Unicode, so `encode_batch` sends rows with
+        non-ASCII text to the Python path; on ASCII text the two agree."""
+        if not self._native_tried:
+            self._native_tried = True
+            from hcrag_tpu_torch.native import NativeWordPiece
+
+            words = [w for w, _ in sorted(self.vocab.items(), key=lambda kv: kv[1])]
+            self._native = NativeWordPiece.create(words)
+        return self._native
 
     def _wordpiece(self, word: str):
         if word in self.vocab:
@@ -289,6 +305,30 @@ class WordPieceTokenizer:
         the tokenizer's own (which it is by default): [CLS], the word
         pieces, [SEP], zeros."""
         max_len = min(max_len, self.max_len) if max_len else self.max_len
+        native = self._native_tokenizer()
+        if native is None:
+            return self._encode_batch_py(texts, max_len)
+        texts = list(texts)
+        py_rows = [i for i, t in enumerate(texts) if self.lowercase and not t.isascii()]
+        if not py_rows:
+            return native.encode_batch(
+                texts, max_len, lowercase=self.lowercase,
+                cls_id=self.cls_id, sep_id=self.sep_id, unk_id=self.unk_id,
+            )
+        ids = np.zeros((len(texts), max_len), dtype=np.int32)
+        mask = np.zeros((len(texts), max_len), dtype=np.int32)
+        native_rows = sorted(set(range(len(texts))) - set(py_rows))
+        if native_rows:
+            ids[native_rows], mask[native_rows] = native.encode_batch(
+                [texts[i] for i in native_rows], max_len, lowercase=self.lowercase,
+                cls_id=self.cls_id, sep_id=self.sep_id, unk_id=self.unk_id,
+            )
+        ids[py_rows], mask[py_rows] = self._encode_batch_py(
+            [texts[i] for i in py_rows], max_len)
+        return ids, mask
+
+    def _encode_batch_py(self, texts: Sequence[str], max_len: int):
+        """The Python path (the native tokenizer's oracle in the tests)."""
         ids = np.zeros((len(texts), max_len), dtype=np.int32)
         mask = np.zeros((len(texts), max_len), dtype=np.int32)
         for i, text in enumerate(texts):

@@ -185,17 +185,43 @@ class QueryEngine:
         exact_rescore: int = 0,
         pallas_super: int = 0,
         select_lane_t: int = 0,
+        use_pallas: Optional[bool] = None,
+        pallas_tile_n: int = TILE_N,
+        pallas_interpret: Optional[bool] = None,
+        bank_dtype: Optional[str] = None,
     ):
         if select_lane_t not in (0, 1):
             raise ValueError(
                 "select_lane_t must be 0 or 1: the kernels select every tile "
                 f"exactly, so no per-lane depth applies (got {select_lane_t})"
             )
+        # The JAX engine's kernel switches, at the values the port runs:
+        # its kernels always run (there is no route without them, so
+        # `use_pallas=False` has nothing to select) over 2048-row tiles;
+        # `pallas_interpret` has no counterpart (a CPU tensor runs the plain
+        # versions) and is ignored.
+        if use_pallas not in (None, True):
+            raise ValueError(
+                "use_pallas must be None or True: the port's kernels always "
+                f"run, there is no route without them (got {use_pallas!r})"
+            )
+        if pallas_tile_n != TILE_N:
+            raise ValueError(
+                f"pallas_tile_n must be {TILE_N}: the kernels' tile is fixed at "
+                f"{TILE_N} rows (got {pallas_tile_n})"
+            )
+        if bank_dtype not in (None, "bfloat16"):
+            raise ValueError(f"bank_dtype must be None or 'bfloat16', got {bank_dtype!r}")
         host_dtype = np.asarray(index.emb).dtype
         if not quantize_int8 and host_dtype != np.float32 and host_dtype.name != "bfloat16":
             raise ValueError(
                 f"float residency needs a float32 or bfloat16 index, got {host_dtype}"
             )
+        #: "bfloat16": the float bank is the f32 rows rounded to bf16 on the
+        #: device, the residency of the JAX engine over a bfloat16 host
+        #: index (no f32 rows, so no rescore), built without a host bf16
+        #: type.
+        self.bank_dtype = None if quantize_int8 else bank_dtype
         self.device = resolve_device(device)
         self.index = index
         self.graph = graph
@@ -339,7 +365,10 @@ class QueryEngine:
         self.d_emb_res8 = self.d_emb_res_scale = None
         self.d_emb_f32 = None
         if not self.quantize_int8:
-            if self.exact_rescore and emb_host.dtype == np.float32:
+            if self.bank_dtype == "bfloat16":
+                self.exact_rescore = 0  # no f32 rows to rescore from
+                self.d_emb = put(emb_host).to(torch.bfloat16)
+            elif self.exact_rescore and emb_host.dtype == np.float32:
                 # bf16 rows for selection; the exact f32 rows of only the
                 # merged candidates are rescored.
                 self.d_emb_f32 = put(emb_host)

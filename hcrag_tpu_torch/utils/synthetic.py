@@ -33,6 +33,16 @@ def synthetic_embeddings(
     return out
 
 
+def synthetic_ell(n: int, max_degree: int = 4, seed: int = 1) -> np.ndarray:
+    """Random padded neighbor table [n, max_degree] (self-loops moved to
+    the next node)."""
+    rng = np.random.default_rng(seed)
+    nbrs = rng.integers(0, n, size=(n, max_degree), dtype=np.int64)
+    rows = np.arange(n)[:, None]
+    nbrs = np.where(nbrs == rows, (nbrs + 1) % n, nbrs)
+    return nbrs.astype(np.int32)
+
+
 def synthetic_bank(
     n: int,
     dim: int = 384,

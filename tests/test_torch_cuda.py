@@ -983,3 +983,52 @@ def test_agent_on_card_equals_cpu(cuda):
     assert [n.text for n in rg.final_relevant_nodes] == [n.text for n in rc.final_relevant_nodes]
     np.testing.assert_allclose([n.score for n in rg.final_relevant_nodes],
                                [n.score for n in rc.final_relevant_nodes], atol=1e-5, rtol=0)
+
+
+def test_native_libraries_build_on_card_machine(cuda):
+    from hcrag_tpu_torch import native
+
+    assert native.available()
+    assert native.NativeWordPiece.create(["[PAD]", "a", "##b"]) is not None
+
+
+def test_built_index_on_card_equals_cpu(cuda, tmp_path):
+    """The offline build (a seeded corpus) served on the card equals the
+    CPU engine, in memory and after save / load."""
+    from hcrag_tpu_torch.core.dense_index import DenseIndex
+    from hcrag_tpu_torch.core.graph import CsrGraph
+    from hcrag_tpu_torch.ingest.adventureworks import build_adventureworks
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import write_adventureworks_corpus
+
+    bundle = build_adventureworks(write_adventureworks_corpus(tmp_path / "data", seed=5))
+    bundle.index.save(tmp_path / "art")
+    bundle.graph.save(tmp_path / "art")
+    q = np.asarray(bundle.index.emb, np.float32)[::7][:64]
+    want = QueryEngine(bundle.index, bundle.graph, device="cpu").query_batch(q, top_k=10)
+    for index, graph in ((bundle.index, bundle.graph),
+                         (DenseIndex.load(tmp_path / "art"), CsrGraph.load(tmp_path / "art"))):
+        got = QueryEngine(index, graph, device=cuda).query_batch(q, top_k=10)
+        for f in ("top_indices", "expanded_nodes", "expanded_counts"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+        for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
+            np.testing.assert_allclose(getattr(got, f), getattr(want, f), atol=1e-5, rtol=0)
+
+
+def test_bf16_bank_engine_on_card_equals_cpu(cuda):
+    """`bank_dtype="bfloat16"` (the serving harness's ENGINE=bf16): B4 over
+    the rows rounded to bf16 on the card, equal to the CPU engine."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(20_000, 384, graph_degree=4)
+    q = np.random.default_rng(3).standard_normal((64, 384)).astype(np.float32)
+    opts = dict(ell_max_degree=8, bank_dtype="bfloat16", exact_rescore=32)
+    gpu = QueryEngine(index, graph, device=cuda, **opts)
+    assert gpu.d_emb.dtype == torch.bfloat16 and gpu.exact_rescore == 0
+    topk_cuda.float_tile_topk.launches = 0
+    got = gpu.query_batch(q, top_k=10)
+    assert topk_cuda.float_tile_topk.launches == 1
+    want = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, top_k=10)
+    np.testing.assert_array_equal(got.top_indices, want.top_indices)
+    np.testing.assert_allclose(got.top_scores, want.top_scores, atol=1e-5, rtol=0)
