@@ -74,6 +74,9 @@ last line:
                pool takes no B2; equal to the CPU on 64 queries), recall@10
                of each and ms per step (CUDA events), B4 and B1 against their
                plain versions at these shapes;
+     path EX — the three examples (`hcrag_tpu_torch.examples.*`) on the
+               card as subprocesses, at once, `end_to_end` and
+               `path_extraction` over path B's corpus, each exiting 0;
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
@@ -97,6 +100,15 @@ last line:
                card's checkpoint restored on the CPU (scores within 1e-6),
                NDCG@10 against the teacher on 512 held-out queries, re-ranked
                and not (a report);
+     path P1 — the sharded engine (`parallel/`) at world size 1 over NCCL
+               on the same index and queries: int8 + bf16 rescore (B1, B2
+               over the shard's pool) and `exact_rescore=32` (B5, B2), each
+               equal to an unsharded engine of the same options bit for
+               bit, recall gated, both steps timed in turns (unsharded,
+               sharded, sharded, unsharded) with the ratio, the busy share;
+               then the int8 engine's checkpoint saved, its banks zeroed,
+               restored (seconds, bytes; results equal), and 1,024 requests
+               through `BatchedExecutor` over it, equal to `query_batch`;
   5. path F2 — the same index in `bench.py`'s bf16 mode (`exact_rescore=32`:
                B5 over a bf16 bank, B2, the f32 rescore), B=8192;
      path S1 — the same index, `exact_rescore=32, pallas_super=8` (1024-row
@@ -105,6 +117,16 @@ last line:
      path S2 — the same index, `quantize_int8=True, int8_rescore=32,
                int8_f32_rescore=True, pallas_super=4` (2048 x 4 rows),
                B=8192: B7i, B2;
+     path P2 — 2 and 4 ranks spawned on the one card over gloo (NCCL
+               refuses two ranks on one card), 262,144 x 384, B=1024, in 9
+               modes (B4, B5, B7f, B1, B7i) and, at 4 ranks, `shard_graph`
+               at depth 2 and a 2 x 2 (batch, rows) mesh: every rank's
+               results equal rank 0's bit for bit and the unsharded
+               engine's on the card; each mode launches its selection
+               kernel and no B2 (pools of 64 or 32 tiles); the ranks' step
+               times, which measure no interconnect; then B4, B5, B7f, B1
+               and B7i at one shard's shapes (65,536 rows, B=1024) against
+               their plain versions;
   6. path F1 — the default engine (B4 over the f32 bank), `query_batch` at
                B=1024, then `process_query`, `find_similar_content`,
                `search_by_category` (every 500th row re-typed) and
@@ -235,6 +257,9 @@ E_RATES, E_SECONDS, E_SAT = (2000.0, 5000.0, 10000.0, 20000.0), 3.0, 65536
 E_WAIT_S = 60.0  # the most one served request may take before the phase fails
 RR_QUERIES, RR_TOP_M, RR_EPOCHS, RR_BATCH = 512, 20, 30, 32
 A_SEED, A_SMALL_ROWS = 42, 20_000  # the agents' sampling seed; the card-vs-CPU engine
+P2_ROWS, P2_BATCH, P2_REPS = 262_144, 1024, 2  # path P2: ranks sharing the one card
+P2_WORLDS = (2, 4)
+EXAMPLES = ("end_to_end", "configurable_weights", "path_extraction")  # path EX
 
 
 def log(*a):
@@ -1411,9 +1436,6 @@ def path_rr(engine, index, dev, card, rec) -> None:
 def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     """bench.py's bf16 mode: B5 over a bf16 bank, B2, the f32 rescore,
     B=8192."""
-    from hcrag_tpu_torch.ops import topk_cuda as tc
-    from hcrag_tpu_torch.testing import check_packed_topk
-
     opts = dict(exact_rescore=RESCORE, select_lane_t=1)
     engine = engine_ready("F2", index, graph, dev, BATCH, **opts)
     drive(engine, queries, ("float_packed_tile_topk", "packed_candidate_merge"), "F2",
@@ -1421,17 +1443,28 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     check_small_against_cpu(dev, "F2", dict(ell_max_degree=8, **opts))
     dq = torch.from_numpy(queries).to(dev)
     time_step(engine, dq, "F2", card, reps=3)
+    kv, ki = b5_at_path(engine, dq, "F2", card, rec)
+    merge_at_path(kv, ki, RESCORE, "F2", card, rec)
+
+
+def b5_at_path(engine, dq, label, card, rec):
+    """B5 at the path's shapes (the engine's bf16 bank, queries `dq`, the
+    rescore's merge_k) against its plain version by `testing.py`'s rule,
+    then its time beside the plain version's and its bound; returns its
+    candidates."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.testing import check_packed_topk
 
     e = engine.d_emb
-    n_bank = e.shape[0]
-    mask = path_mask(n_bank, N_ROWS, dev)
+    n_bank, b = e.shape[0], dq.shape[0]
+    mask = path_mask(n_bank, engine._n_rows, dq.device)
     qb = dq.to(torch.bfloat16)
     k = tc.tile_pick_count(TOP_K, n_bank, 2048, RESCORE)
     kv, ki = tc.float_packed_tile_topk(qb, e, mask, k)
     pv, pi = tc.float_packed_tile_topk_plain(qb, e, mask, k)
     err, moved = check_packed_topk(kv, ki, pv, pi, qb, e)
     rec.err("float_packed_tile_topk", err)
-    log(f"[F2] B5 at the path's shapes: agrees with its plain version "
+    log(f"[{label}] B5 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} of {kv.shape[0] * kv.shape[1]} tiles next to "
         f"a key-quantum boundary)")
     del pv, pi
@@ -1439,13 +1472,13 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     b5_plain_ms = cuda_ms(lambda: tc.float_packed_tile_topk_plain(qb, e, mask, k),
                           reps=1, warmup=0)
     tiles = -(-n_bank // 2048)
-    b5_bytes = 2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * BATCH * tiles * k
-    b5_bound = bound_ms(2.0 * BATCH * n_bank * DIM, "bf16", b5_bytes)
-    log(f"[F2] B5 float_packed_tile_topk B={BATCH} N={n_bank} tiles={tiles} bf16: "
+    b5_bytes = 2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * b * tiles * k
+    b5_bound = bound_ms(2.0 * b * n_bank * DIM, "bf16", b5_bytes)
+    log(f"[{label}] B5 float_packed_tile_topk B={b} N={n_bank} tiles={tiles} bf16: "
         f"{b5_ms:.3f} ms (plain {b5_plain_ms:.3f} ms, bound {b5_bound[0]:.3f} ms by "
         f"{b5_bound[1]}; {card})")
-    rec.kernel("float_packed_tile_topk", "F2", b5_ms, b5_plain_ms, b5_bound)
-    merge_at_path(kv, ki, RESCORE, "F2", card, rec)
+    rec.kernel("float_packed_tile_topk", label, b5_ms, b5_plain_ms, b5_bound)
+    return kv, ki
 
 
 SUPER_PATHS = {  # label -> (engine options, B7 kernel, supertile factor run)
@@ -1464,10 +1497,6 @@ def path_super(label, index, graph, queries, ref, dev, card, rec, n_rows=N_ROWS,
     or B5); then B7 at the path's shapes against its plain version (B7i bit
     for bit, B7f by `testing.py`'s rule for an 8192-row lane field), and
     B2 over the supertile pool."""
-    from hcrag_tpu_torch.ops import topk_cuda as tc
-    from hcrag_tpu_torch.ops.quantize import quantize_queries
-    from hcrag_tpu_torch.testing import check_packed_topk
-
     opts, kernel, spt = SUPER_PATHS[label]
     opts = dict(opts, select_lane_t=1)
     b = len(queries)
@@ -1482,12 +1511,28 @@ def path_super(label, index, graph, queries, ref, dev, card, rec, n_rows=N_ROWS,
     check_small_against_cpu(dev, label, dict(ell_max_degree=8, **opts))
     dq = torch.from_numpy(queries).to(dev)
     time_step(engine, dq, label, card, reps=step_reps)
+    vals, idxs, k_sub = super_at_path(engine, dq, kernel, label, card, rec)
+    merge_at_path(vals, idxs, min(RESCORE, vals.shape[1] * k_sub), label, card, rec)
 
+
+def super_at_path(engine, dq, kernel, label, card, rec):
+    """The engine's B7 kernel at the path's shapes (its resolved supertile
+    and per-supertile k) against its plain version (B7i bit for bit, B7f by
+    `testing.py`'s rule for the supertile's lane field), then its time
+    beside the plain version's and its bound; returns (values, indices,
+    k_sub)."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_queries
+    from hcrag_tpu_torch.testing import check_packed_topk
+
+    b = dq.shape[0]
+    cfg = engine.resolved_kernel_config(b, TOP_K)
+    lbits, k_sub = cfg["tile_n"] * cfg["super_tiles"], cfg["tile_k"]
     bank = engine._bank()
     int8 = engine.quantize_int8
     e = bank["emb_int8"] if int8 else bank["emb"]
     n_bank = e.shape[0]
-    mask = path_mask(n_bank, n_rows, dev)
+    mask = path_mask(n_bank, engine._n_rows, dq.device)
     args = (*quantize_queries(dq), e, bank["emb_scale"], mask) if int8 else (
         dq.to(e.dtype), e, mask)
     fn, plain = getattr(tc, kernel), getattr(tc, kernel + "_plain")
@@ -1513,7 +1558,7 @@ def path_super(label, index, graph, queries, ref, dev, card, rec, n_rows=N_ROWS,
         f"k_sub={k_sub}: {how}; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms by {bound[1]}; {card})")
     rec.kernel(kernel, label, ms, plain_ms, bound)
-    merge_at_path(vals, idxs, min(RESCORE, num_super * k_sub), label, card, rec)
+    return vals, idxs, k_sub
 
 
 def path_x(index, queries, dev, card, rec) -> None:
@@ -1712,16 +1757,19 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
     return engine
 
 
-def b4_at_path(engine, dq, label, card, rec) -> None:
-    """B4 at the path's shapes (the engine's f32 bank, queries `dq`)
-    against its plain version by `testing.check_exact_topk`, then its time
-    beside the plain version's, its bound and the dots alone."""
+def b4_at_path(engine, dq, label, card, rec, category_filter=None) -> None:
+    """B4 at the path's shapes (the engine's f32 bank, queries `dq`, the
+    mask of `category_filter` where one is given) against its plain version
+    by `testing.check_exact_topk`, then its time beside the plain version's,
+    its bound and the dots alone."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.testing import check_exact_topk
 
     e = engine.d_emb
     n_bank, b = e.shape[0], dq.shape[0]
     mask = path_mask(n_bank, engine._n_rows, dq.device)
+    if category_filter:
+        mask[:engine._n_rows] = engine._type_mask(category_filter)
     kv, ki = tc.float_tile_topk(dq, e, mask, TOP_K)
     pv, pi = tc.float_tile_topk_plain(dq, e, mask, TOP_K)
     err, moved = check_exact_topk(kv, ki, pv, pi, dq, e, mask)
@@ -2436,17 +2484,19 @@ B_QUERY = "mountain bike frame"
 B_SCALE_QUERIES = 1024  # path B at scale: the index's own texts, encoded
 
 
-def run_cli_group(commands, label: str, timeout: float = 300.0) -> None:
-    """Run `python -m hcrag_tpu_torch.cli <args>` for each argument list
-    at once, each on the CLI's default device, the card; every one must
-    exit 0."""
+def run_cli_group(commands, label: str, timeout: float = 300.0,
+                  module: str = "hcrag_tpu_torch.cli") -> None:
+    """Run `python -m <module> <args>` (the CLI by default) for each
+    argument list at once, each on its default device, the card; every one
+    must exit 0.  With `module=None` each list starts with its module."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.time()
+    commands = [[module, *args] if module else args for args in commands]
     procs = [(args, subprocess.Popen(
-        [sys.executable, "-m", "hcrag_tpu_torch.cli", *args], cwd=root, env=env,
+        [sys.executable, "-m", *args], cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for args in commands]
     failed = []
     for args, proc in procs:
@@ -2456,13 +2506,14 @@ def run_cli_group(commands, label: str, timeout: float = 300.0) -> None:
             proc.kill()
             out, err = proc.communicate()
         lines = out.strip().splitlines()
-        log(f"[{label}] cli {args[0]}: exit {proc.returncode}; "
+        name = " ".join(a.rsplit(".", 1)[-1] for a in args[:2])
+        log(f"[{label}] {name}: exit {proc.returncode}; "
             f"{len(lines)} lines; first: {lines[0][:150] if lines else ''!r}")
         if proc.returncode != 0:
-            failed.append((args[0], err[-2000:]))
-    log(f"[{label}] {len(commands)} CLI processes in {time.time() - t0:.1f} s (wall, in parallel)")
+            failed.append((name, err[-2000:]))
+    log(f"[{label}] {len(commands)} processes in {time.time() - t0:.1f} s (wall, in parallel)")
     if failed:
-        raise AssertionError(f"{label}: CLI commands failed: {failed}")
+        raise AssertionError(f"{label}: commands failed: {failed}")
 
 
 def same_results(got, want, label: str, atol: float = 1e-5) -> None:
@@ -2479,6 +2530,8 @@ def same_results(got, want, label: str, atol: float = 1e-5) -> None:
 
 
 def same_batch(got, want, label: str, atol: float = 1e-5) -> None:
+    """Two `query_batch` results: integer fields equal, float fields
+    within `atol` (0.0: equal)."""
     for f in ("top_indices", "expanded_nodes", "expanded_counts"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"{label} {f}")
     for f in ("top_scores", "relevance", "combined", "expanded_relevance"):
@@ -2692,6 +2745,282 @@ def path_g(dev, card, rec, tmp: str) -> None:
         f"{int(res.expanded_counts.sum())} nodes expanded; card == CPU; {card}")
 
 
+def path_ex(tmp: str) -> None:
+    """Path EX: the port's three examples on the card as subprocesses, at
+    once, `end_to_end` and `path_extraction` over path B's corpus; each
+    must exit 0."""
+    data = f"{tmp}/b_corpus"  # path B's
+    run_cli_group([[f"hcrag_tpu_torch.examples.{name}"]
+                   + ([] if name == "configurable_weights" else [data])
+                   for name in EXAMPLES], "EX", module=None)
+
+
+#: label -> (engine options, recall gate): path P1's modes.  The int8
+#: mode rescores from bf16 rows, which cannot order f32 near-ties (D3's gate).
+P1_MODES = {
+    "P1-int8": (dict(quantize_int8=True, int8_rescore=RESCORE), D3_MIN_RECALL),
+    "P1-rescore": (dict(exact_rescore=RESCORE), MIN_RECALL),
+}
+P1_KERNELS = {"P1-int8": "int8_tile_topk", "P1-rescore": "float_packed_tile_topk"}
+
+
+def path_p1(index, graph, queries, ref, dev, card, rec) -> None:
+    """Path P1: the sharded engine at world size 1 over NCCL on the int8
+    path's index and queries (1M x 384, B=8192), in two modes, each against
+    an unsharded engine of the same options: results equal bit for bit (the
+    rescore shares `candidate_dots`), recall gated, step times of both in
+    turns (unsharded, sharded, sharded, unsharded); then, on the int8
+    mode, a checkpoint round trip (the banks zeroed between save and
+    restore) and 1,024 requests through `BatchedExecutor`."""
+    import tempfile
+    from pathlib import Path
+
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from hcrag_tpu_torch.parallel.checkpoint import (
+        restore_sharded_index,
+        save_sharded_index,
+    )
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    t_phase = time.time()
+    mesh = make_row_mesh()
+    if mesh.size != 1 or mesh.backend != "nccl":
+        raise AssertionError(f"P1: want one rank over NCCL, got {mesh}")
+    log(f"[P1] mesh {mesh.shape} over {mesh.backend} on {mesh.device}")
+    dq = torch.from_numpy(queries).to(dev)
+    for label, (opts, gate) in P1_MODES.items():
+        plain = engine_ready(f"{label} unsharded", index, graph, dev, BATCH, **opts)
+        t0 = time.time()
+        sharded = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, **opts)
+        torch.cuda.synchronize()
+        log(f"[{label}] sharded engine ready in {time.time() - t0:.1f} s (host set-up); "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card with both engines")
+        res = drive(sharded, queries, (P1_KERNELS[label], "packed_candidate_merge"), label,
+                    ref, rec, min_recall=gate)
+        same_batch(res, plain.query_batch(queries, top_k=TOP_K, expansion_depth=DEPTH),
+                   label, atol=0.0)
+        log(f"[{label}] sharded == unsharded, every field bit for bit")
+        steps = {"unsharded": lambda: plain.query_batch_device(dq, top_k=TOP_K,
+                                                               expansion_depth=DEPTH),
+                 "sharded": lambda: sharded.query_batch_device(dq, top_k=TOP_K,
+                                                              expansion_depth=DEPTH)}
+        torch.cuda.reset_peak_memory_stats()
+        ms = {k: [] for k in steps}
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            ms[k].append(cuda_ms(steps[k], reps=3))
+        u, sh = (float(np.mean(ms[k])) for k in ("unsharded", "sharded"))
+        log(f"[{label}] step: unsharded {u:.3f} ms ({BATCH / u * 1e3:.1f} QPS; runs "
+            f"{ms['unsharded']}), sharded {sh:.3f} ms ({BATCH / sh * 1e3:.1f} QPS; runs "
+            f"{ms['sharded']}), sharded / unsharded {sh / u:.4f} (CUDA events, 3 steps a "
+            f"run; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"with both engines resident; {card})")
+        profile_step(steps["sharded"], card)
+        del plain
+        if label == "P1-int8":
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.time()
+                save_sharded_index(sharded, tmp)
+                save_s = time.time() - t0
+                nbytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+                for t in (sharded.d_emb_int8, sharded.d_emb_scale, sharded.d_emb):
+                    t.zero_()
+                t0 = time.time()
+                restore_sharded_index(sharded, tmp)
+                torch.cuda.synchronize()
+                restore_s = time.time() - t0
+            same_batch(sharded.query_batch(queries, top_k=TOP_K, expansion_depth=DEPTH),
+                       res, f"{label} restored", atol=0.0)
+            log(f"[{label}] checkpoint: saved {nbytes / 2**30:.3f} GiB in {save_s:.2f} s, "
+                f"restored in {restore_s:.2f} s (host clock; the banks zeroed between); "
+                f"results after the restore equal those before, bit for bit")
+            q = queries[:E_BATCH]
+            ex = BatchedExecutor(sharded, batch_size=E_BATCH, top_k=TOP_K)
+            try:
+                served = [f.result(timeout=E_WAIT_S) for f in ex.submit_many(q)]
+            finally:
+                ex.shutdown()
+            want = sharded.query_batch(q, top_k=TOP_K)
+            if not (np.array_equal(np.stack([i for _, i in served]), want.top_indices)
+                    and np.array_equal(np.stack([v for v, _ in served]), want.top_scores)):
+                raise AssertionError(f"{label}: served results differ from query_batch")
+            log(f"[{label}] BatchedExecutor over the sharded engine: {E_BATCH} requests in "
+                f"{ex.batches_dispatched} batch(es), equal to query_batch bit for bit")
+        del sharded
+        free(label)
+    torch.distributed.destroy_process_group()  # the one-rank group make_row_mesh made
+    log(f"[P1] phase {time.time() - t_phase:.1f} s")
+
+
+#: label -> (engine options, query options, the selection kernel): path
+#: P2's modes (the CPU tests' engine modes but top_k = 200, plus the int8
+#: supertiles); the last two run at 4 ranks only.
+P2_MODES = {
+    "f32": (dict(), dict(), "float_tile_topk"),
+    "rescore": (dict(exact_rescore=RESCORE), dict(), "float_packed_tile_topk"),
+    "rescore_super": (dict(exact_rescore=RESCORE, pallas_super=4), dict(),
+                      "float_packed_super_tile_topk"),
+    "int8": (dict(quantize_int8=True, int8_rescore=RESCORE), dict(), "int8_tile_topk"),
+    "int8_super": (dict(quantize_int8=True, int8_rescore=RESCORE, pallas_super=4), dict(),
+                   "int8_super_tile_topk"),
+    "residual": (dict(quantize_int8=True, int8_residual=True, int8_rescore=24), dict(),
+                 "int8_tile_topk"),
+    "int8_only": (dict(quantize_int8=True, int8_only=True), dict(), "int8_tile_topk"),
+    "filter": (dict(), dict(category_filter="json_table"), "float_tile_topk"),
+    "dynamic": (dict(), dict(dynamic=True), "float_tile_topk"),
+    "graph_split_depth2": (dict(shard_graph=True), dict(expansion_depth=2), "float_tile_topk"),
+    "batch_mesh": (dict(shard_queries=True), dict(), "float_tile_topk"),
+}
+P2_FOUR_ONLY = ("graph_split_depth2", "batch_mesh")
+
+
+def p2_setup(n_rows=P2_ROWS):
+    """P2's index of `n_rows` (every third row re-typed, for the filter),
+    graph and queries, the same in every process."""
+    import dataclasses
+
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(n_rows, DIM, graph_degree=4)
+    meta = [dict(m, type="json_table" if r % 3 == 0 else "database_table")
+            for r, m in enumerate(index.metadata)]
+    q = np.random.default_rng(9).standard_normal((P2_BATCH, DIM)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return dataclasses.replace(index, metadata=meta), graph, q
+
+
+def p2_query_kwargs(qopts):
+    kw = dict(qopts, top_k=TOP_K)
+    if kw.pop("dynamic", False):
+        from hcrag_tpu_torch.pipeline.scorer_designs import canonical_dynamic_weight_tensor
+
+        kw["dynamic_weight_tensor"] = canonical_dynamic_weight_tensor()
+    return kw
+
+
+def p2_rank(rank, world, labels):
+    """One rank of path P2 (gloo; every rank on the one card): per mode,
+    the result, the launches of one query_batch (counts at 0 just before)
+    and the step's ms (CUDA events)."""
+    from hcrag_tpu_torch.parallel import (
+        ShardedQueryEngine,
+        make_batch_row_mesh,
+        make_row_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    meshes = {"rows": make_row_mesh(device="cuda")}
+    if "batch_mesh" in labels:
+        meshes["batch"] = make_batch_row_mesh(2, world // 2, device="cuda")
+    index, graph, queries = p2_setup()
+    dq = torch.from_numpy(queries).to(meshes["rows"].device)
+    out = {}
+    for label in labels:
+        opts, qopts, _ = P2_MODES[label]
+        mesh = meshes["batch" if opts.get("shard_queries") else "rows"]
+        engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, **opts)
+        kw = p2_query_kwargs(qopts)
+        zero_counts()
+        res = engine.query_batch(queries, **kw)
+        counts = read_counts()
+        ms = cuda_ms(lambda: engine.query_batch_device(dq, **kw), reps=P2_REPS)
+        out[label] = (res, counts, ms)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def path_p2(dev, card, rec) -> None:
+    """Path P2: the sharded engine on 2 and 4 ranks spawned on the one card
+    over gloo (NCCL refuses two ranks on one card), 262,144 x 384, B=1024:
+    every rank's results equal rank 0's bit for bit and the unsharded
+    engine's on the card; each mode launches its selection kernel and no B2
+    (pools of 64 or 32 tiles x 10 stay under 4,096 candidates).  The step
+    times are the ranks' on a shared card: no measure of collectives."""
+    from hcrag_tpu_torch.parallel.launch import run_ranks
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    t_phase = time.time()
+    index, graph, queries = p2_setup()
+    want = {}
+    for label, (opts, qopts, _) in P2_MODES.items():
+        plain_opts = {k: v for k, v in opts.items() if k not in ("shard_graph", "shard_queries")}
+        engine = QueryEngine(index, graph, device=dev, ell_max_degree=8, **plain_opts)
+        want[label] = engine.query_batch(queries, **p2_query_kwargs(qopts))
+        del engine
+    log(f"[P2] unsharded results of {len(P2_MODES)} modes on the card "
+        f"({P2_ROWS} x {DIM}, B={P2_BATCH}) in {time.time() - t_phase:.1f} s")
+    for world in P2_WORLDS:
+        t0 = time.time()
+        labels = [m for m in P2_MODES if world == 4 or m not in P2_FOUR_ONLY]
+        ranks = run_ranks(p2_rank, world, args=(labels,), timeout_s=600)
+        total = {name: 0 for name in KERNELS}
+        for label in labels:
+            res, counts, _ = ranks[0][label]
+            for r in range(1, world):
+                same_batch(ranks[r][label][0], res, f"P2 {world} ranks {label} rank {r}",
+                           atol=0.0)
+            same_batch(res, want[label], f"P2 {world} ranks {label}",
+                       atol=1e-5 if label == "batch_mesh" else 0.0)
+            kernel = P2_MODES[label][2]
+            if counts[kernel] < 1 or counts["packed_candidate_merge"]:
+                raise AssertionError(f"P2 {world} ranks {label}: launches {counts}")
+            if label == "batch_mesh":  # other shapes: a shard of (batch, rows)
+                rec.launches[f"P2-{world}-batch"] = counts
+                continue
+            for name, n in counts.items():
+                total[name] += n
+        rec.launches[f"P2-{world}"] = total
+        times = ", ".join(f"{label} {ranks[0][label][2]:.1f}" for label in labels)
+        log(f"[P2] {world} ranks (gloo, one card; {time.time() - t0:.1f} s with the "
+            f"spawn): every rank == rank 0 bit for bit == the unsharded engine (batch "
+            f"mesh: scores within 1e-5); no B2 launched; rank 0's launches over the row-"
+            f"mesh modes {total}"
+            + (f", over the batch mesh {ranks[0]['batch_mesh'][1]}"
+               if "batch_mesh" in labels else ""))
+        log(f"[P2] {world} ranks: step ms (ranks share one card; not a measure of "
+            f"collectives): {times}; {card}")
+    for world in P2_WORLDS:
+        p2_kernels_at_shard(P2_ROWS // world, queries, f"P2-{world}", dev, card, rec)
+    # the 2 x 2 (batch, rows) mesh: each rank selects its 512 queries over
+    # 131,072 rows (B4; its other modes are not run on that mesh)
+    p2_kernels_at_shard(P2_ROWS // 2, queries[:P2_BATCH // 2], "P2-4-batch", dev, card, rec,
+                        modes=("f32",))
+    log(f"[P2] phase {time.time() - t_phase:.1f} s")
+
+
+def p2_kernels_at_shard(rows, queries, label, dev, card, rec, modes=None) -> None:
+    """P2's selection kernels at one shard's shapes (`rows` rows, the first
+    shard's, with P2's filter types; `queries`) against their plain
+    versions, in each P2 mode of `modes` (by default all but those whose
+    kernel inputs repeat another's: `dynamic` and `graph_split_depth2` hand
+    B4 what `f32` does): B4 (`b4_at_path`; `filter` with its category
+    mask), B5 (`b5_at_path`), B1 (`int8_kernels_at_path` at the mode's own
+    pool, `int8_rescore` or none in `int8_only`; 64 or 32 tiles x 10 take
+    no B2), B7f and B7i (`super_at_path`).  A kernel run in several modes
+    keeps the last mode's times in the summary."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    index, graph, _ = p2_setup(rows)
+    dq = torch.from_numpy(queries).to(dev)
+    modes = modes or ("filter", "f32", "rescore", "rescore_super", "residual", "int8_only",
+                      "int8", "int8_super")
+    for mode in modes:
+        opts, qopts, kernel = P2_MODES[mode]
+        engine = QueryEngine(index, graph, device=dev, ell_max_degree=8, **opts)
+        log(f"[{label}] mode {mode}: {rows} rows per shard, B={len(queries)}")
+        if kernel == "float_tile_topk":
+            b4_at_path(engine, dq, label, card, rec, qopts.get("category_filter"))
+        elif kernel == "float_packed_tile_topk":
+            b5_at_path(engine, dq, label, card, rec)
+        elif kernel == "int8_tile_topk":
+            int8_kernels_at_path(engine, dq, label, card, rec, engine._rescore_m(),
+                                 with_merge=False)
+        else:
+            super_at_path(engine, dq, kernel, label, card, rec)
+        del engine
+
+
 def free(label: str) -> None:
     import gc
 
@@ -2779,6 +3108,7 @@ def main() -> int:
         path_g(dev, card, rec, tmp)
         path_b_scale(dev, card, rec, tmp)
         log(f"[B] paths B, G and B at scale in {time.time() - t0:.1f} s")
+        path_ex(tmp)
     free("B")
 
     # 4-7. the paths over one 1M-row index --------------------------------------
@@ -2795,11 +3125,14 @@ def main() -> int:
     path_rr(engine, index, dev, card, rec)
     del engine
     free("int8")
+    path_p1(index, graph, queries, ref, dev, card, rec)
     path_f2(index, graph, queries, ref, dev, card, rec)
     free("F2")
     for label in ("S1", "S2"):
         path_super(label, index, graph, queries, ref, dev, card, rec)
         free(label)
+    path_p2(dev, card, rec)
+    free("P2")
     f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
     f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
     engine = path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)

@@ -49,6 +49,14 @@ def dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.float32)
 
 
+def candidate_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The f32 dots [B, m] of queries [B, D] with their candidate rows
+    [B, m, D], as elementwise products and sums, which no TF32 setting
+    reaches: the exact rescore's dots (the query engine's, and the sharded
+    engine's on each rank)."""
+    return (rows.to(torch.float32) * q.to(torch.float32)[:, None, :]).sum(dim=-1)
+
+
 def cosine_scores(
     query_emb: torch.Tensor,
     index_emb: torch.Tensor,

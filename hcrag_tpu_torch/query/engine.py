@@ -94,6 +94,7 @@ from hcrag_tpu_torch.ops.quantize import (
 from hcrag_tpu_torch.ops.scoring import combine_metrics_dynamic, popcount_words
 from hcrag_tpu_torch.ops.similarity import (
     STREAMING_MIN_ROWS,
+    candidate_dots,
     dots,
     masked_top_k,
     streaming_masked_top_k,
@@ -159,9 +160,8 @@ def exact_rescore(
     with `rows_fn(i)` and keep top_k (stable ties).  Fillers (idx -1) and
     filtered rows (value -1e30) never win."""
     valid = (i >= 0) & (v > -1e29)
-    rows = rows_fn(torch.where(valid, i, 0).to(torch.int64)).to(torch.float32)
-    exact = (rows * q_emb.to(torch.float32)[:, None, :]).sum(dim=-1)
-    exact = torch.where(valid, exact, -1e30)
+    rows = rows_fn(torch.where(valid, i, 0).to(torch.int64))
+    exact = torch.where(valid, candidate_dots(q_emb, rows), -1e30)
     sv, sp = stable_top_k(exact, top_k)
     return sv, torch.gather(i, 1, sp)
 
@@ -297,7 +297,7 @@ class QueryEngine:
         self._n_rows = np.asarray(index.emb).shape[0]
         mult = self._row_pad_multiple()
         self._n_bank = -(-self._n_rows // mult) * mult
-        self._init_emb_banks(np.asarray(index.emb))
+        self._init_emb_banks(np.asarray(index.emb), self._n_bank)
         self.d_type_ids = put(index.type_ids.astype(np.int32))
         self.d_bits = put(np.ascontiguousarray(index.entity_bits).view(np.int32))
         self.d_counts = put(index.entity_counts.astype(np.int32))
@@ -329,12 +329,13 @@ class QueryEngine:
 
     def _put_operand(self, a: np.ndarray) -> torch.Tensor:
         """A per-call operand (queries, bitsets, weights) on the device
-        without waiting for it: on CUDA the host array is staged in pinned
-        memory and copied on the current stream after the work already
-        queued there (a copy from pageable memory would first wait for
-        that work, which serializes the dispatches of a serving loop).  The
-        pinned block is reused only after the copy (PyTorch's caching host
-        allocator records it on the stream)."""
+        (the JAX engine's `_put_query_input`) without waiting for it: on
+        CUDA the host array is staged in pinned memory and copied on the
+        current stream after the work already queued there (a copy from
+        pageable memory would first wait for that work, which serializes
+        the dispatches of a serving loop).  The pinned block is reused
+        only after the copy (PyTorch's caching host allocator records it on
+        the stream)."""
         t = _tensor(a)
         if self.device.type != "cuda":
             return t.to(self.device)
@@ -349,18 +350,19 @@ class QueryEngine:
             return _super_pad_multiple(self._n_rows, TILE_N)
         return TILE_N
 
-    def _put_rows(self, a: np.ndarray) -> torch.Tensor:
+    def _put_rows(self, a: np.ndarray, n_bank: int) -> torch.Tensor:
         """Host rows [N, D] on the device, padded with zero rows to
-        `_n_bank` rows; pad rows are masked out of every selection."""
+        `n_bank` rows; pad rows are masked out of every selection."""
         t = self._put(a)
-        pad = self._n_bank - t.shape[0]
+        pad = n_bank - t.shape[0]
         return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
-    def _init_emb_banks(self, emb_host: np.ndarray) -> None:
+    def _init_emb_banks(self, emb_host: np.ndarray, n_bank: int) -> None:
         """The selection bank, the bank expanded-node scoring gathers from
         (`d_emb`; none in int8-only residency, whose rows are dequantized
-        from the int8 banks), and the mode's rescore bank."""
-        put = self._put_rows
+        from the int8 banks), and the mode's rescore bank, each of the
+        rows `emb_host` padded to `n_bank` rows."""
+        put = lambda a: self._put_rows(a, n_bank)  # noqa: E731
         self.d_emb_int8 = self.d_emb_scale = None
         self.d_emb_res8 = self.d_emb_res_scale = None
         self.d_emb_f32 = None
@@ -380,7 +382,7 @@ class QueryEngine:
         # Quantized on the device, chunk by chunk: no host copy of the
         # int8 banks, and the pad rows come out as zero rows.
         banks = quantize_bank(
-            emb_host, self.device, self._n_bank, residual=self.int8_residual
+            emb_host, self.device, n_bank, residual=self.int8_residual
         )
         self.d_emb_int8, self.d_emb_scale = banks[:2]
         if self.int8_residual:
@@ -441,18 +443,20 @@ class QueryEngine:
     # ------------------------------------------------------------------
     # Selection
     # ------------------------------------------------------------------
-    def _select_plan(self, batch: int) -> Tuple[int, int]:
+    def _select_plan(self, batch: int, n_bank: int) -> Tuple[int, int]:
         """(tile rows, supertile factor) of a selection over `batch`
-        queries, as the JAX engine's `_local_select` resolves them: with a
-        rescore, `pallas_super > 1` and at least 64 queries, the float path
-        drops to 1024-row tiles and both paths group tiles into supertiles
-        (`resolve_super_tiles` against the padded bank's tile count, as the
-        kernel clamps); otherwise 2048-row tiles, no supertiles."""
+        queries and a bank of `n_bank` rows (one shard's block in the
+        sharded engine), as the JAX engine's `_local_select` resolves them:
+        with a rescore, `pallas_super > 1` and at least 64 queries, the
+        float path drops to 1024-row tiles and both paths group tiles into
+        supertiles (`resolve_super_tiles` against the padded bank's tile
+        count, as the kernel clamps); otherwise 2048-row tiles, no
+        supertiles."""
         if not (self._rescore_m() > 0 and self.pallas_super > 1
                 and batch >= SUPER_MIN_BATCH):
             return TILE_N, 1
         tile = TILE_N if self.quantize_int8 else SUPER_FLOAT_TILE_N
-        return tile, resolve_super_tiles(self.pallas_super, tile, -(-self._n_bank // tile))
+        return tile, resolve_super_tiles(self.pallas_super, tile, -(-n_bank // tile))
 
     def _local_select(self, q_emb, bank, type_mask, top_k: int, fetch_k: int):
         """The mode's selection over the bank: (values [B, m], row indices
@@ -463,18 +467,23 @@ class QueryEngine:
         stands for the JAX engine's fused two-level branch (whose exact
         contract it computes), without one for the k-pass branch; the calls
         differ only in merge_k, hence in the per-tile pick count and the
-        merge's out_k.  `_select_plan` gives the tile and the supertiles."""
+        merge's out_k.  `_select_plan` gives the tile and the supertiles.
+
+        Every shape is read from the tensors handed in, so the same method
+        selects over one shard's block of the sharded engine (its local row
+        indices; its pad rows masked in `type_mask`), as the JAX engine's
+        `_local_select` runs unchanged inside `shard_map`."""
         m = max(top_k, fetch_k)
-        if self._dense_route(m):
+        sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
+        if self._dense_route(m, sel.shape[0]):
             return self._dense_select(q_emb, bank, type_mask, m)
         merge_k = m if m > top_k else 0
-        sel = bank["emb_int8"] if self.quantize_int8 else bank["emb"]
         pad = sel.shape[0] - type_mask.shape[0]
         if pad:
             type_mask = torch.cat(
                 [type_mask, torch.zeros(pad, dtype=torch.bool, device=type_mask.device)]
             )
-        tile, spt = self._select_plan(q_emb.shape[0])
+        tile, spt = self._select_plan(q_emb.shape[0], sel.shape[0])
         if self.quantize_int8:
             return cosine_top_k_int8(
                 q_emb, sel, bank["emb_scale"], type_mask, top_k,
@@ -485,20 +494,21 @@ class QueryEngine:
             packed_select=self.exact_rescore > 0, super_tiles=spt,
         )
 
-    def _dense_route(self, m: int) -> bool:
+    def _dense_route(self, m: int, n_bank: int) -> bool:
         """Whether a selection of m candidates leaves the kernels: m, capped
-        at the bank's rows, above the 128 a per-tile list holds."""
-        return min(m, self._n_bank) > MAX_TILE_K
+        at the bank's `n_bank` rows, above the 128 a per-tile list holds."""
+        return min(m, n_bank) > MAX_TILE_K
 
     def _dense_select(self, q_emb, bank, type_mask, m: int):
         """The JAX engine's selection off the TPU (`engine.py:619-639`),
-        over the unpadded rows: a float bank takes its dots and
-        `masked_top_k`, an int8 bank `quantized_scores` and `masked_top_k`;
-        past 2^18 rows the streaming variants.  Filtered rows come back at
-        -inf with their own indices, as there; slots past the rows are
-        (-1e30, -1) fillers."""
-        n = self._n_rows
-        mask = type_mask[:n]
+        over the rows `type_mask` covers (the unpadded rows; in the sharded
+        engine one shard's block, whose pad rows the mask leaves out): a
+        float bank takes its dots and `masked_top_k`, an int8 bank
+        `quantized_scores` and `masked_top_k`; past 2^18 rows the streaming
+        variants.  Filtered rows come back at -inf with their own indices,
+        as there; slots past the rows are (-1e30, -1) fillers."""
+        mask = type_mask
+        n = mask.shape[0]
         if self.quantize_int8:
             e8, es = bank["emb_int8"][:n], bank["emb_scale"][:n]
             if n > STREAMING_MIN_ROWS:
@@ -553,12 +563,12 @@ class QueryEngine:
         merge_k = m if m > top_k else 0
         packed = self.quantize_int8 or self.exact_rescore > 0
         sel = self.d_emb_int8 if self.quantize_int8 else self.d_emb
-        n_bank = int(sel.shape[0])
-        tile, spt = self._select_plan(batch)
+        n_bank = int(sel.shape[0])  # in the sharded engine, one shard's block
+        tile, spt = self._select_plan(batch, n_bank)
         tiles = -(-n_bank // tile)
         plain = "" if self.device.type == "cuda" else "_plain"
-        if self._dense_route(max(top_k, m)):
-            streaming = self._n_rows > STREAMING_MIN_ROWS
+        if self._dense_route(max(top_k, m), n_bank):
+            streaming = min(self._n_rows, n_bank) > STREAMING_MIN_ROWS
             if self.quantize_int8:
                 kernel = ("streaming_quantized_top_k" if streaming
                           else "quantized_scores+masked_top_k")
@@ -624,6 +634,22 @@ class QueryEngine:
     # ------------------------------------------------------------------
     # The step
     # ------------------------------------------------------------------
+    def _gather_graph(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows of a graph-side table (the ELL tables, per-node type ids,
+        node -> row links) at batched node ids; the sharded engine gathers
+        across ranks when it splits these tables (`shard_graph`)."""
+        return table[idx]
+
+    def _expand_impl(self, bank, seeds, depth: int, max_expanded: int):
+        """The batched k-hop expansion of the seeds [B, k] over the ELL
+        bank, with the batch-level early exit
+        (`ops/expand.expand_batch_early_exit`); the sharded engine's split
+        graph tables take its own."""
+        return expand_batch_early_exit(
+            bank["neighbors"], seeds, depth=depth, max_nodes=max_expanded,
+            hop2_neighbors=bank["neighbors_hop2"],
+        )
+
     def _build_step(self, top_k: int, depth: int, max_expanded: int, reduction: int):
         has_graph = self.d_neighbors is not None
         priority = self.d_priority
@@ -691,15 +717,12 @@ class QueryEngine:
 
             # --- expansion -----------------------------------------------
             seeds = torch.where(top_v >= -1.0, bank["graph_ids"][gi], -1)
-            expanded, exp_count = expand_batch_early_exit(
-                bank["neighbors"], seeds, depth=depth, max_nodes=max_expanded,
-                hop2_neighbors=bank["neighbors_hop2"],
-            )
+            expanded, exp_count = self._expand_impl(bank, seeds, depth, max_expanded)
 
             # --- expanded-node scoring -----------------------------------
             valid = expanded >= 0
             safe_nodes = torch.where(valid, expanded, 0).to(torch.int64)
-            rows = bank["g_row"][safe_nodes]  # [B, E]; -1 = none
+            rows = self._gather_graph(bank["g_row"], safe_nodes)  # [B, E]; -1 = none
             has_row = rows >= 0
             safe_rows = torch.where(has_row, rows, 0).to(torch.int64)
             e_emb = (
@@ -712,7 +735,7 @@ class QueryEngine:
             e_bits = torch.where(has_row[..., None], bits[safe_rows], 0)
             e_counts = torch.where(has_row, counts[safe_rows], 0)
             ent_e = entity_match(q_bits, q_count, e_bits, e_counts)
-            e_tids = bank["g_type_ids"][safe_nodes]
+            e_tids = self._gather_graph(bank["g_type_ids"], safe_nodes)
             typ_e = priority[intent_ids[:, None], e_tids]
             rel_e = metrics_reduce(
                 sem_e, torch.zeros_like(sem_e), ent_e, typ_e, weights,

@@ -188,6 +188,15 @@ class BatchedExecutor:
     ):
         if mode not in ("retrieval", "full"):
             raise ValueError(f"mode must be 'retrieval' or 'full', got {mode!r}")
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            # Every rank of a sharded engine must make the same calls; one
+            # dispatcher per rank would batch different requests.
+            raise ValueError(
+                f"BatchedExecutor serves one rank; this engine spans {mesh.size}. "
+                "Serving over several ranks needs rank 0's dispatcher to "
+                "broadcast each batch to the others (ROADMAP A, item 9)"
+            )
         self.engine = engine
         self.device = torch.device(engine.device)
         self.batch_size = batch_size

@@ -1032,3 +1032,56 @@ def test_bf16_bank_engine_on_card_equals_cpu(cuda):
     want = QueryEngine(index, graph, device="cpu", **opts).query_batch(q, top_k=10)
     np.testing.assert_array_equal(got.top_indices, want.top_indices)
     np.testing.assert_allclose(got.top_scores, want.top_scores, atol=1e-5, rtol=0)
+
+
+def _unsharded_on_card(dev):
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from tests import torch_sharded_workers as W
+
+    index, graph = W.index_and_graph(W.CARD_ROWS, W.CARD_DIM)
+    q = W.engine_queries(W.CARD_B, W.CARD_DIM)
+    return {mode: W.result_arrays(QueryEngine(index, graph, device=dev, ell_max_degree=8,
+                                              **opts).query_batch(q, top_k=10))
+            for mode, opts in W.CARD_MODES.items()}
+
+
+def _same_fields(got, want):
+    for f, a in want.items():
+        np.testing.assert_array_equal(got[f], a, err_msg=f)
+
+
+def test_sharded_one_rank_nccl_equals_unsharded(cuda):
+    """`ShardedQueryEngine` at world size 1 over NCCL (a one-rank group in
+    memory) equals the unsharded engine on the card bit for bit, int8 +
+    rescore and f32."""
+    import torch.distributed as dist
+
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from tests import torch_sharded_workers as W
+
+    assert not dist.is_initialized()
+    mesh = make_row_mesh()
+    try:
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        index, graph = W.index_and_graph(W.CARD_ROWS, W.CARD_DIM)
+        q = W.engine_queries(W.CARD_B, W.CARD_DIM)
+        want = _unsharded_on_card(cuda)
+        for mode, opts in W.CARD_MODES.items():
+            got = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8,
+                                     **opts).query_batch(q, top_k=10)
+            _same_fields(W.result_arrays(got), want[mode])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_two_ranks_on_one_card_equal_unsharded(cuda):
+    """Two gloo ranks spawned on the one card: each rank's results equal the
+    unsharded engine's on the card bit for bit."""
+    from hcrag_tpu_torch.parallel.launch import run_ranks
+    from tests import torch_sharded_workers as W
+
+    ranks = run_ranks(W.card_cases, 2, timeout_s=300)
+    want = _unsharded_on_card(cuda)
+    for out in ranks:
+        for mode in W.CARD_MODES:
+            _same_fields(out[mode], want[mode])
