@@ -107,8 +107,14 @@ last line:
                bit, recall gated, both steps timed in turns (unsharded,
                sharded, sharded, unsharded) with the ratio, the busy share;
                then the int8 engine's checkpoint saved, its banks zeroed,
-               restored (seconds, bytes; results equal), and 1,024 requests
-               through `BatchedExecutor` over it, equal to `query_batch`;
+               restored (seconds, bytes; results equal), 1,024 requests
+               through `BatchedExecutor` over it (the rank protocol over
+               NCCL), equal to `query_batch`, and a closed-loop saturation
+               (65,536 requests in blocks of 1,024) through the executor
+               over the unsharded and the sharded engine in turns: req/s of
+               each, their ratio (the protocol's cost), every batch equal to
+               `query_batch` bit for bit, then the host and wall ms of each
+               piece of a dispatch;
   5. path F2 — the same index in `bench.py`'s bf16 mode (`exact_rescore=32`:
                B5 over a bf16 bank, B2, the f32 rescore), B=8192;
      path S1 — the same index, `exact_rescore=32, pallas_super=8` (1024-row
@@ -126,6 +132,19 @@ last line:
                kernel and no B2 (pools of 64 or 32 tiles); the ranks' step
                times, which measure no interconnect; then B4, B5, B7f, B1
                and B7i at one shard's shapes (65,536 rows, B=1024) against
+               their plain versions;
+     path P3 — `BatchedExecutor` over the sharded engine on 2 and 4 gloo
+               ranks spawned on the card (rank 0 serves, the others
+               follow), P2's index, int8 + rescore (B1) and f32 (B4):
+               16,384 requests in blocks of 1,024 and 256 single requests
+               from 8 clients (dispatch sizes 128 / 256 / 1024), then 4,096
+               in full mode at depth 3; every served batch equals the
+               unsharded engine's `query_batch` of it bit for bit, every
+               rank steps every batch, the blocks' req/s and the singles'
+               p50 / p99 (the ranks share one card: no measure of serving
+               across cards); a failure case (2 ranks, 10 s group timeout,
+               rank 1's step raises) in which every rank returns within
+               the bound; B1 and B4 at 128 and 256 queries a shard against
                their plain versions;
   6. path F1 — the default engine (B4 over the f32 bank), `query_batch` at
                B=1024, then `process_query`, `find_similar_content`,
@@ -227,6 +246,7 @@ import json
 import resource
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1028,8 +1048,9 @@ class Record:
         """A kernel's numbers at a path's shapes; at a shape no path runs
         (`path` not among the driven paths) its launches are None."""
         bound_ms_, by = bound
+        counts = self.launches.get(path)
         self.rows[name][path] = dict(
-            launches=self.launches[path][name] if path in self.launches else None,
+            launches=counts[name] if counts is not None else None,
             ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms_, bound_by=by, library_ms=library_ms)
         if dots_alone_ms is not None:  # a yardstick: the dots alone, not the same function
@@ -1204,6 +1225,23 @@ def _e_queries(n: int = E_SAT) -> np.ndarray:
     return q
 
 
+def int8_per_batch(engine) -> set:
+    """The kernels an int8 engine launches once per served batch: B1, and
+    B2 where a dispatch size's merge takes it."""
+    return {"int8_tile_topk"} | {
+        "packed_candidate_merge" for s in E_SIZES
+        if engine.resolved_kernel_config(s, TOP_K)["merge"].startswith("packed")}
+
+
+def check_per_batch(counts: dict, per_batch, batches: int, label: str) -> None:
+    """Each kernel of `per_batch` launched once per dispatched batch, and no
+    other kernel."""
+    for name, n in counts.items():
+        want = batches if name in per_batch else 0
+        if n != want:
+            raise AssertionError(f"{label}: {name} launched {n} times for {batches} batches")
+
+
 def _check_served_batches(engine, futs, queries, label, full=False) -> int:
     """Every batch of the saturation row holds 1024 consecutive requests,
     and each request's result equals `query_batch` of those 1024 queries:
@@ -1319,14 +1357,7 @@ def path_e(engine, dev, card, rec) -> None:
             f"{card}")
         log(f"[{label}] {ex.batches_dispatched} batches dispatched, mean fill "
             f"{so.mean_fill(ex):.1f}; launches {counts}")
-        per_batch = {"int8_tile_topk"} | {
-            "packed_candidate_merge" for s in E_SIZES
-            if engine.resolved_kernel_config(s, TOP_K)["merge"].startswith("packed")}
-        for name, n in counts.items():
-            want = ex.batches_dispatched if name in per_batch else 0
-            if n != want:
-                raise AssertionError(f"{label}: {name} launched {n} times for "
-                                     f"{ex.batches_dispatched} batches")
+        check_per_batch(counts, int8_per_batch(engine), ex.batches_dispatched, label)
         n = _check_served_batches(engine, sat_futs, queries, label, full=mode == "full")
         log(f"[{label}] the {n} saturation batches of 1024 equal query_batch at B=1024 "
             f"on the same queries, bit for bit")
@@ -2771,7 +2802,8 @@ def path_p1(index, graph, queries, ref, dev, card, rec) -> None:
     rescore shares `candidate_dots`), recall gated, step times of both in
     turns (unsharded, sharded, sharded, unsharded); then, on the int8
     mode, a checkpoint round trip (the banks zeroed between save and
-    restore) and 1,024 requests through `BatchedExecutor`."""
+    restore), 1,024 requests through `BatchedExecutor` (the rank protocol
+    over NCCL) and the closed-loop saturation of `p1_saturation`."""
     import tempfile
     from pathlib import Path
 
@@ -2815,7 +2847,6 @@ def path_p1(index, graph, queries, ref, dev, card, rec) -> None:
             f"run; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"with both engines resident; {card})")
         profile_step(steps["sharded"], card)
-        del plain
         if label == "P1-int8":
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.time()
@@ -2843,12 +2874,100 @@ def path_p1(index, graph, queries, ref, dev, card, rec) -> None:
             if not (np.array_equal(np.stack([i for _, i in served]), want.top_indices)
                     and np.array_equal(np.stack([v for v, _ in served]), want.top_scores)):
                 raise AssertionError(f"{label}: served results differ from query_batch")
-            log(f"[{label}] BatchedExecutor over the sharded engine: {E_BATCH} requests in "
-                f"{ex.batches_dispatched} batch(es), equal to query_batch bit for bit")
-        del sharded
+            log(f"[{label}] BatchedExecutor over the sharded engine (the rank protocol over "
+                f"NCCL): {E_BATCH} requests in {ex.batches_dispatched} batch(es), equal to "
+                f"query_batch bit for bit")
+            p1_saturation(plain, sharded, card, rec)
+        del plain, sharded
         free(label)
     torch.distributed.destroy_process_group()  # the one-rank group make_row_mesh made
     log(f"[P1] phase {time.time() - t_phase:.1f} s")
+
+
+def p1_saturation(plain, sharded, card, rec) -> None:
+    """Closed-loop saturation through `BatchedExecutor` (path E's settings):
+    `E_SAT` requests submitted at once in blocks of `E_BATCH`, over the
+    unsharded int8 engine and over the sharded one (the rank protocol over
+    NCCL at world size 1), in turns (unsharded, sharded, sharded,
+    unsharded), the set-up's objects frozen.  Each kernel of the int8
+    engine launches once per batch; every batch of the first turn of each
+    holds 1024 requests whose results equal the unsharded `query_batch` of
+    them bit for bit.  The ratio of the two rates is the protocol's cost."""
+    from hcrag_tpu_torch.benchmarks import serving_openloop as so
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    queries = _e_queries()
+    rps = {"unsharded": [], "sharded": []}
+    for turn in ("unsharded", "sharded", "sharded", "unsharded"):
+        engine = plain if turn == "unsharded" else sharded
+        label = "P1-E" if turn == "sharded" else "P1-E-unsharded"
+        zero_counts()
+        ex = BatchedExecutor(engine, batch_size=E_BATCH, batch_sizes=E_SIZES,
+                             pipeline_depth=E_DEPTH, max_wait_ms=E_WAIT_MS, top_k=TOP_K)
+        futs = []
+        try:
+            with collections(True):
+                st = so.run_saturation(ex, queries, E_SAT, futs, timeout=E_WAIT_S,
+                                       block=E_BATCH)
+        finally:
+            ex.shutdown()
+        counts = read_counts()
+        check_per_batch(counts, int8_per_batch(engine), ex.batches_dispatched, label)
+        if not rps[turn]:
+            rec.launches[label] = counts
+            n = _check_served_batches(plain, futs, queries, label)
+            log(f"[{label}] {n} saturation batches of {E_BATCH}, each equal to the "
+                f"unsharded query_batch at B={E_BATCH} bit for bit; launches {counts}")
+        rps[turn].append(st["requests_per_s"])
+    u, sh = (float(np.mean(rps[k])) for k in ("unsharded", "sharded"))
+    per_batch_ms = (1 / sh - 1 / u) * E_BATCH * 1e3
+    log(f"[P1-E] closed-loop saturation, {E_SAT} requests in blocks of {E_BATCH} (set-up "
+        f"objects frozen): unsharded {u:.1f} req/s (runs {rps['unsharded']}), sharded "
+        f"{sh:.1f} req/s (runs {rps['sharded']}), sharded / unsharded {sh / u:.4f}: the "
+        f"rank protocol's cost {per_batch_ms:.3f} ms a batch of {E_BATCH} (host clock); "
+        f"{card}")
+    p1_dispatch_pieces(plain, sharded, queries[:E_BATCH], card)
+
+
+def p1_dispatch_pieces(plain, sharded, q, card, reps: int = 64) -> None:
+    """The pieces of one dispatch at B=`E_BATCH`, each called `reps` times
+    back to back: host ms a call to issue them, and wall ms a call once the
+    card has finished them.  A piece whose issue takes its wall time holds
+    the host until the card is done with it."""
+    import torch.distributed as dist
+
+    def host_batch():  # as the dispatcher makes it (`BatchedExecutor._queries`)
+        host = torch.zeros((E_BATCH, DIM), dtype=torch.float32, pin_memory=True)
+        norms = np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        np.divide(q, norms, out=host.numpy())
+        return host.to(plain.device, non_blocking=True)
+
+    ctrl = dist.new_group(backend="gloo")
+    header = torch.zeros(3, dtype=torch.int64)
+    dq = host_batch()
+    pieces = {
+        "host batch (normalize, pinned copy)": host_batch,
+        "header (gloo broadcast)": lambda: dist.broadcast(header, src=0, group=ctrl),
+        "batch (NCCL broadcast)": lambda: dist.broadcast(dq, src=0, group=sharded.mesh.world),
+        "unsharded step": lambda: plain.retrieve_batch_device(dq, top_k=TOP_K),
+        "sharded step": lambda: sharded.retrieve_batch_device(dq, top_k=TOP_K),
+    }
+    try:
+        out = []
+        for name, fn in pieces.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out.append(f"{name} {(t1 - t0) / reps * 1e3:.3f} / {(t2 - t0) / reps * 1e3:.3f}")
+    finally:
+        dist.destroy_process_group(ctrl)
+    log(f"[P1-E] a dispatch's pieces, host ms to issue / wall ms a call ({reps} calls "
+        f"back to back): {'; '.join(out)}; {card}")
 
 
 #: label -> (engine options, query options, the selection kernel): path
@@ -2981,18 +3100,19 @@ def path_p2(dev, card, rec) -> None:
         log(f"[P2] {world} ranks: step ms (ranks share one card; not a measure of "
             f"collectives): {times}; {card}")
     for world in P2_WORLDS:
-        p2_kernels_at_shard(P2_ROWS // world, queries, f"P2-{world}", dev, card, rec)
+        p2_kernels_at_shard(P2_ROWS // world, [(f"P2-{world}", queries)], dev, card, rec)
     # the 2 x 2 (batch, rows) mesh: each rank selects its 512 queries over
     # 131,072 rows (B4; its other modes are not run on that mesh)
-    p2_kernels_at_shard(P2_ROWS // 2, queries[:P2_BATCH // 2], "P2-4-batch", dev, card, rec,
-                        modes=("f32",))
+    p2_kernels_at_shard(P2_ROWS // 2, [("P2-4-batch", queries[:P2_BATCH // 2])], dev, card,
+                        rec, modes=("f32",))
     log(f"[P2] phase {time.time() - t_phase:.1f} s")
 
 
-def p2_kernels_at_shard(rows, queries, label, dev, card, rec, modes=None) -> None:
+def p2_kernels_at_shard(rows, shapes, dev, card, rec, modes=None) -> None:
     """P2's selection kernels at one shard's shapes (`rows` rows, the first
-    shard's, with P2's filter types; `queries`) against their plain
-    versions, in each P2 mode of `modes` (by default all but those whose
+    shard's, with P2's filter types; each (label, queries) of `shapes`)
+    against their plain versions, in each P2 mode of `modes` (by default
+    all but those whose
     kernel inputs repeat another's: `dynamic` and `graph_split_depth2` hand
     B4 what `f32` does): B4 (`b4_at_path`; `filter` with its category
     mask), B5 (`b5_at_path`), B1 (`int8_kernels_at_path` at the mode's own
@@ -3002,23 +3122,262 @@ def p2_kernels_at_shard(rows, queries, label, dev, card, rec, modes=None) -> Non
     from hcrag_tpu_torch.query.engine import QueryEngine
 
     index, graph, _ = p2_setup(rows)
-    dq = torch.from_numpy(queries).to(dev)
     modes = modes or ("filter", "f32", "rescore", "rescore_super", "residual", "int8_only",
                       "int8", "int8_super")
     for mode in modes:
         opts, qopts, kernel = P2_MODES[mode]
         engine = QueryEngine(index, graph, device=dev, ell_max_degree=8, **opts)
-        log(f"[{label}] mode {mode}: {rows} rows per shard, B={len(queries)}")
-        if kernel == "float_tile_topk":
-            b4_at_path(engine, dq, label, card, rec, qopts.get("category_filter"))
-        elif kernel == "float_packed_tile_topk":
-            b5_at_path(engine, dq, label, card, rec)
-        elif kernel == "int8_tile_topk":
-            int8_kernels_at_path(engine, dq, label, card, rec, engine._rescore_m(),
-                                 with_merge=False)
-        else:
-            super_at_path(engine, dq, kernel, label, card, rec)
+        for label, queries in shapes:
+            dq = torch.from_numpy(queries).to(dev)
+            log(f"[{label}] mode {mode}: {rows} rows per shard, B={len(queries)}")
+            if kernel == "float_tile_topk":
+                b4_at_path(engine, dq, label, card, rec, qopts.get("category_filter"))
+            elif kernel == "float_packed_tile_topk":
+                b5_at_path(engine, dq, label, card, rec)
+            elif kernel == "int8_tile_topk":
+                int8_kernels_at_path(engine, dq, label, card, rec, engine._rescore_m(),
+                                     with_merge=False)
+            else:
+                super_at_path(engine, dq, kernel, label, card, rec)
         del engine
+
+
+#: Path P3: serving over 2 and 4 gloo ranks sharing the one card, P2's
+#: index, the int8 + rescore (B1) and f32 (B4) modes of P2.
+P3_MODES = ("int8", "f32")
+P3_SIZES = (128, 256, 1024)  # dispatch sizes (batch 1024)
+P3_REQUESTS, P3_SINGLES, P3_CLIENTS = 16_384, 256, 8  # retrieval: blocks, singles, clients
+P3_FULL, P3_DEPTH = 4096, 3  # full mode: requests in blocks, expansion depth
+P3_FAIL_ROWS, P3_FAIL_TIMEOUT_S, P3_FAIL_AT = 20_000, 10.0, 3  # the failure case
+P3_LABEL = "ranks share one card over gloo: not a measure of serving across cards"
+
+
+def p3_queries() -> np.ndarray:
+    q = np.random.default_rng(13).standard_normal(
+        (P3_REQUESTS + P3_SINGLES, DIM)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def served_fields(results) -> dict:
+    """Served results stacked per field of `QueryBatchResult` (retrieval:
+    scores and indices)."""
+    if isinstance(results[0], tuple):
+        return {"top_scores": np.stack([r[0] for r in results]),
+                "top_indices": np.stack([r[1] for r in results])}
+    return {f: np.stack([np.asarray(getattr(r, "expanded_count" if f == "expanded_counts"
+                                            else f)) for r in results])
+            for f in ("top_scores", "top_indices", "relevance", "combined", "expanded_nodes",
+                      "expanded_counts", "expanded_relevance")}
+
+
+def p3_traffic(ex, queries, kind) -> dict:
+    """Rank 0's traffic: one batch of each dispatch size first (not
+    timed); then in retrieval mode `P3_REQUESTS` requests in blocks of
+    `E_BATCH` while `P3_CLIENTS` threads send `P3_SINGLES` single requests,
+    each client waiting for its result before the next; in full mode
+    `P3_FULL` requests in blocks.  Returns the results in request order,
+    each batch's (dispatch size, request ids by slot), the blocks' req/s
+    (to the last block request's resolve), and the single requests'
+    latencies (submit -> resolve, ms)."""
+    for s in P3_SIZES:
+        ex.submit_many(queries[:s])[-1].result(timeout=E_WAIT_S)
+    n = P3_REQUESTS if kind == "retrieval" else P3_FULL
+    futs = [None] * (n + (P3_SINGLES if kind == "retrieval" else 0))
+    lat = []
+
+    def client(c):
+        for i in range(n + c, len(futs), P3_CLIENTS):
+            t = time.monotonic()
+            f = ex.submit(queries[i])
+            f.result(timeout=E_WAIT_S)
+            lat.append((f.resolve_time - t) * 1e3)
+            futs[i] = f
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(P3_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for lo in range(0, n, E_BATCH):
+        futs[lo:lo + E_BATCH] = ex.submit_many(queries[lo:lo + E_BATCH])
+    for f in futs[:n]:
+        f.result(timeout=E_WAIT_S)
+    dt = max(f.resolve_time for f in futs[:n]) - t0
+    for t in threads:
+        t.join(E_WAIT_S)
+    layout = {}
+    for i, f in enumerate(futs):
+        b = f._batch
+        layout.setdefault(id(b), (len(b.payload[0]), {}))[1][f._slot] = i
+    return dict(results=served_fields([f.result(timeout=1) for f in futs]),
+                batches=[(b, [slots[j] for j in sorted(slots)]) for b, slots in layout.values()],
+                rps=n / dt, lat_ms=lat)
+
+
+def p3_rank(rank, world):
+    """One rank of path P3 (gloo; every rank on the one card): per mode,
+    `BatchedExecutor` over the sharded engine in retrieval and full mode
+    (rank 0 runs `p3_traffic`, the others follow), each executor's batches,
+    and the launches over both (counts at 0 just before)."""
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_row_mesh(device="cuda")
+    index, graph, _ = p2_setup()
+    queries = p3_queries()
+    out = {}
+    for label in P3_MODES:
+        engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8,
+                                    **P2_MODES[label][0])
+        zero_counts()
+        runs = {}
+        for kind in ("retrieval", "full"):
+            ex = BatchedExecutor(engine, batch_size=E_BATCH, batch_sizes=P3_SIZES,
+                                 pipeline_depth=E_DEPTH, max_wait_ms=E_WAIT_MS, top_k=TOP_K,
+                                 mode=kind, expansion_depth=P3_DEPTH)
+            try:
+                served = p3_traffic(ex, queries, kind) if rank == 0 else None
+            finally:
+                ex.shutdown()
+            runs[kind] = (served, ex.batches_dispatched)
+        out[label] = (runs, read_counts())
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def p3_failure_rank(rank, world):
+    """P3's failure case: a mesh with a `P3_FAIL_TIMEOUT_S` timeout over
+    `P3_FAIL_ROWS` rows on the card; rank 1's step raises at its
+    `P3_FAIL_AT`-th batch.  Rank 0 serves batches of 8 until then, then
+    submits two more at once and once again after them."""
+    import datetime
+
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    t0 = time.monotonic()
+    mesh = make_row_mesh(device="cuda",
+                         timeout=datetime.timedelta(seconds=P3_FAIL_TIMEOUT_S))
+    index, graph, _ = p2_setup(P3_FAIL_ROWS)
+    engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8)
+    if rank == 1:
+        real, calls = engine.retrieve_batch_device, []
+
+        def failing(q, top_k):
+            calls.append(1)
+            if len(calls) == P3_FAIL_AT:
+                raise RuntimeError("injected step failure")
+            return real(q, top_k=top_k)
+
+        engine.retrieve_batch_device = failing
+    q = p3_queries()
+    out = {}
+    ex = BatchedExecutor(engine, batch_size=8, top_k=TOP_K, max_wait_ms=E_WAIT_MS)
+    try:
+        if rank == 0:
+            for lo in range(0, 8 * (P3_FAIL_AT - 1), 8):
+                for f in ex.submit_many(q[lo:lo + 8]):
+                    f.result(timeout=E_WAIT_S)
+            out["later_failed"] = 0
+            for f in ex.submit_many(q[8 * (P3_FAIL_AT - 1):8 * (P3_FAIL_AT + 1)]):
+                try:
+                    f.result(timeout=E_WAIT_S)
+                except Exception:  # counted: every later request must fail
+                    out["later_failed"] += 1
+            try:
+                ex.submit(q[0])
+                out["submit"] = None
+            except RuntimeError as e:
+                out["submit"] = str(e)
+    finally:
+        try:  # past the timeout: a follower's loop ends only after it
+            ex.shutdown(timeout=P3_FAIL_TIMEOUT_S + 20)
+            out["shutdown"] = None
+        except Exception as e:  # a follower's loop error, re-raised
+            out["shutdown"] = repr(e)
+    out["batches"] = ex.batches_dispatched
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def path_p3(dev, card, rec) -> None:
+    """Path P3: `BatchedExecutor` over the sharded engine on 2 and 4 gloo
+    ranks spawned on the one card (the rank protocol; rank 0 serves, the
+    others follow), P2's index, modes int8 + rescore (B1) and f32 (B4):
+    every served result on rank 0 equals the unsharded engine's
+    `query_batch` of its batch (the same dispatch size, zero-padded) on the
+    card bit for bit; every rank steps every batch; each mode's kernel
+    launches once per batch on rank 0 and no other kernel does; req/s and
+    the single requests' p50 / p99.  Then the failure case (2 ranks, a
+    short group timeout) and B1 / B4 at P3's smaller dispatch sizes per
+    shard against their plain versions."""
+    from hcrag_tpu_torch.parallel.launch import run_ranks
+    from hcrag_tpu_torch.query.engine import QueryEngine
+
+    t_phase = time.time()
+    index, graph, _ = p2_setup()
+    queries = p3_queries()
+    plain = {label: QueryEngine(index, graph, device=dev, ell_max_degree=8,
+                                **P2_MODES[label][0]) for label in P3_MODES}
+    for world in P2_WORLDS:
+        t0 = time.time()
+        ranks = run_ranks(p3_rank, world, timeout_s=600)
+        total = {name: 0 for name in KERNELS}
+        for label in P3_MODES:
+            runs, counts = ranks[0][label]
+            stepped = 0
+            for kind, (served, batches) in runs.items():
+                others = [ranks[r][label][0][kind][1] for r in range(1, world)]
+                if others != [batches] * (world - 1):
+                    raise AssertionError(f"P3-{world} {label} {kind}: rank 0 stepped "
+                                         f"{batches} batches, the others {others}")
+                stepped += batches
+                for b, ids in served["batches"]:
+                    q = np.zeros((b, DIM), np.float32)
+                    q[:len(ids)] = queries[ids]
+                    ref = plain[label].query_batch(q, top_k=TOP_K, expansion_depth=P3_DEPTH)
+                    for f, arr in served["results"].items():
+                        if not np.array_equal(arr[ids], getattr(ref, f)[:len(ids)]):
+                            raise AssertionError(f"P3-{world} {label} {kind}: {f} differs "
+                                                 f"from the unsharded engine's")
+                lat = np.asarray(served["lat_ms"])
+                log(f"[P3-{world}] {label} {kind}: {len(served['results']['top_indices'])} "
+                    f"requests in {len(served['batches'])} batches ({batches} with the "
+                    f"warm-up) on every rank, each equal to the unsharded engine bit for bit; "
+                    f"the blocks {served['rps']:.1f} req/s"
+                    + (f"; {len(lat)} single requests from {P3_CLIENTS} clients: p50 "
+                       f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms "
+                       f"(submit -> resolve)" if len(lat) else "")
+                    + f" ({P3_LABEL}; {card})")
+            kernel = P2_MODES[label][2]
+            check_per_batch(counts, {kernel}, stepped, f"P3-{world} {label}")
+            for name, n in counts.items():
+                total[name] += n
+        rec.launches[f"P3-{world}"] = total
+        log(f"[P3] {world} ranks in {time.time() - t0:.1f} s with the spawn; rank 0's "
+            f"launches {total}")
+    del plain
+    t0 = time.time()
+    fail = run_ranks(p3_failure_rank, 2, timeout_s=300)
+    bound = P3_FAIL_TIMEOUT_S + 30
+    if not (fail[0]["later_failed"] == 16 and "failed across ranks" in fail[0]["submit"]
+            and fail[0]["shutdown"] is None and "injected" in fail[1]["shutdown"]
+            and [r["batches"] for r in fail] == [P3_FAIL_AT - 1] * 2
+            and all(r["seconds"] < bound for r in fail)):
+        raise AssertionError(f"P3 failure case: {fail}")
+    seconds = ", ".join(f"{r['seconds']:.2f}" for r in fail)
+    log(f"[P3] failure case (2 ranks, group timeout {P3_FAIL_TIMEOUT_S:.0f} s): rank 1's "
+        f"step raised at batch {P3_FAIL_AT}; rank 0 failed that batch and the next, a later "
+        f"submit raised, rank 1's shutdown re-raised; the ranks returned in {seconds} s "
+        f"(bound {bound:.0f} s); {time.time() - t0:.1f} s with the spawn")
+    for world in P2_WORLDS:
+        shapes = [(f"P3-{world}@{b}", queries[:b]) for b in P3_SIZES[:2]]
+        for label, _ in shapes:  # P3-{world}'s launches, at each of its shapes
+            rec.launches[label] = rec.launches[f"P3-{world}"]
+        p2_kernels_at_shard(P2_ROWS // world, shapes, dev, card, rec, modes=P3_MODES)
+    log(f"[P3] phase {time.time() - t_phase:.1f} s")
 
 
 def free(label: str) -> None:
@@ -3133,6 +3492,8 @@ def main() -> int:
         free(label)
     path_p2(dev, card, rec)
     free("P2")
+    path_p3(dev, card, rec)
+    free("P3")
     f1_q = np.random.default_rng(8).standard_normal((F1_BATCH, DIM)).astype(np.float32)
     f1_q /= np.linalg.norm(f1_q, axis=1, keepdims=True)
     engine = path_f1(index, graph, brute_force_top_k(index.emb, f1_q, dev), dev, card, rec)

@@ -3,19 +3,21 @@
     python -m hcrag_tpu_torch.benchmarks.ab_step PARENT_DIR CHANGE_DIR
 
 Each directory holds a checkout of the repository (for example two
-`git archive` trees).  Four turns run in the order parent, change, change,
-parent, each in a process of its own that imports its tree alone (its
-working directory and `PYTHONPATH`), so that a drift of the card's clock
-over the run weighs on both trees alike.  A turn builds `chip_smoke.py`'s
-path X: the 1,000,000 x 384 synthetic index with a degree-8 graph,
-`exact_rescore=32`, top_k 100, B=256 (the first 256 of the smoke's queries),
-then times `query_batch_device` at depth 3 and at depth 1, REPS steps
-each after one warm-up, every step by its own CUDA events.  The turn's
-code uses only calls that both trees have (`synthetic_setup`,
-`synthetic_graph`, `QueryEngine`, `query_batch_device`).
+`git archive` trees).  `TURNS` turns a tree run in the order parent,
+change, change, parent, parent, change, ..., each in a process of its own
+that imports its tree alone (its working directory and `PYTHONPATH`), so
+that a drift of the card's clock over the run weighs on both trees alike.
+A turn builds `chip_smoke.py`'s path X: the 1,000,000 x 384 synthetic
+index with a degree-8 graph, `exact_rescore=32`, top_k 100, B=256 (the
+first 256 of the smoke's queries), then times `query_batch_device` at
+depth 3 and at depth 1, REPS steps each after one warm-up, every step by
+its own CUDA events.  The turn's code uses only calls that both trees have
+(`synthetic_setup`, `synthetic_graph`, `QueryEngine`,
+`query_batch_device`).
 
 It prints a line per turn, then one JSON line: each tree's ms per step by
-turn and depth, and their medians over its two turns.  Needs a card.
+turn and depth, each turn's median, and the tree's median and quartiles
+over all its steps.  Needs a card.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from pathlib import Path
 import numpy as np
 
 REPS = 5
+TURNS = 5  # turns a tree
 _TURN = r"""
 import json, sys
 import numpy as np
@@ -84,14 +87,21 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     trees = {"parent": args.parent.absolute(), "change": args.change.absolute()}
     runs = {"parent": [], "change": []}
-    for name in ("parent", "change", "change", "parent"):
+    order = [name for i in range(TURNS)
+             for name in (("parent", "change") if i % 2 == 0 else ("change", "parent"))]
+    for name in order:
         res = turn(trees[name])
         runs[name].append(res)
         print(f"{name} {json.dumps(res)}", flush=True)
-    print(json.dumps({
-        name: {"turns": r, "median_ms": {d: float(np.median([m for t in r for m in t[d]]))
-                                         for d in ("d3", "d1")}}
-        for name, r in runs.items()}))
+
+    def stats(r, d):
+        steps = [m for t in r for m in t[d]]
+        return {"turn_medians_ms": [float(np.median(t[d])) for t in r],
+                "median_ms": float(np.median(steps)),
+                "quartiles_ms": [float(q) for q in np.percentile(steps, [25, 75])]}
+
+    print(json.dumps({name: {"turns": r, **{d: stats(r, d) for d in ("d3", "d1")}}
+                      for name, r in runs.items()}))
     return 0
 
 

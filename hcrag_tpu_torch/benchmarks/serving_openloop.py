@@ -93,13 +93,14 @@ def run_rate(ex, queries: np.ndarray, rate: float, duration_s: float,
 
 
 def run_saturation(ex, queries: np.ndarray, n: int,
-                   futures_out: Optional[List] = None, timeout: float = 600.0) -> dict:
+                   futures_out: Optional[List] = None, timeout: float = 600.0,
+                   block: int = 4096) -> dict:
     """Ceiling throughput: submit all `n` requests at once (blocks of
-    4096), time the drain."""
+    `block`), time the drain."""
     t0 = time.monotonic()
     futs = []
-    for s in range(0, n, 4096):
-        futs.extend(ex.submit_many(queries[s % len(queries):][: min(4096, n - s)]))
+    for s in range(0, n, block):
+        futs.extend(ex.submit_many(queries[s % len(queries):][: min(block, n - s)]))
     for f in futs:
         f.result(timeout=timeout)
     dt = time.monotonic() - t0

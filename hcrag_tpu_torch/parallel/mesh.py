@@ -19,11 +19,18 @@ its environment (`env://`), else a world of one rank in memory (a
 `HashStore`), so a single plain process needs no launcher.  Its backend is
 NCCL when every rank has a card of its own, else gloo (the CPU, or ranks
 sharing a card); a `cuda` mesh without CUDA raises (`resolve_device`).
+
+A `timeout` bounds every collective over the mesh's groups: they are then
+made with it (and so is the default group, where the mesh makes it), so a
+rank whose partner never joins raises instead of waiting torch's default
+(30 minutes for gloo).  Without one, the row mesh's group is the default
+group itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Dict, Optional, Tuple, Union
 
@@ -45,13 +52,17 @@ class Mesh:
     `shape` maps each axis, in order, to its size; `coords` gives this
     rank's index on each axis; `groups` the process group of the ranks that
     differ from this one along that axis alone (their group ranks are their
-    coordinates on it); `device` is this rank's device."""
+    coordinates on it); `world` the group of every rank of the mesh (group
+    rank = global rank); `device` is this rank's device; `timeout` the
+    groups' collective timeout (None: torch's default)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     groups: Dict[str, object]
     device: torch.device
     backend: str
+    world: object
+    timeout: Optional[datetime.timedelta]
 
     @property
     def size(self) -> int:
@@ -79,8 +90,9 @@ def _rank_device(device: torch.device, rank: int) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def _ensure_default_group(device: torch.device) -> torch.device:
-    """The default process group (made if absent) and this rank's device."""
+def _ensure_default_group(device: torch.device, timeout) -> torch.device:
+    """The default process group (made if absent, with `timeout`) and this
+    rank's device."""
     if not dist.is_initialized():
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             world = int(os.environ["WORLD_SIZE"])
@@ -89,7 +101,7 @@ def _ensure_default_group(device: torch.device) -> torch.device:
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
             dist.init_process_group(
-                backend, init_method="env://",
+                backend, init_method="env://", timeout=timeout,
                 device_id=dev if backend == "nccl" else None,
             )
             return dev
@@ -98,7 +110,7 @@ def _ensure_default_group(device: torch.device) -> torch.device:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            backend, store=dist.HashStore(), rank=0, world_size=1,
+            backend, store=dist.HashStore(), rank=0, world_size=1, timeout=timeout,
             device_id=dev if backend == "nccl" else None,
         )
         return dev
@@ -108,8 +120,8 @@ def _ensure_default_group(device: torch.device) -> torch.device:
     return dev
 
 
-def _make_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...], device) -> Mesh:
-    dev = _ensure_default_group(resolve_device(device))
+def _make_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...], device, timeout) -> Mesh:
+    dev = _ensure_default_group(resolve_device(device), timeout)
     world, rank = dist.get_world_size(), dist.get_rank()
     total = 1
     for s in sizes:
@@ -119,26 +131,28 @@ def _make_mesh(axes: Tuple[str, ...], sizes: Tuple[int, ...], device) -> Mesh:
             f"a mesh of {dict(zip(axes, sizes))} needs {total} ranks; the "
             f"default group has {world}"
         )
+    # Every rank creates every group, in this order.
+    world_group = (dist.group.WORLD if timeout is None
+                   else dist.new_group(list(range(world)), timeout=timeout))
     if len(axes) == 1:
-        groups = {axes[0]: dist.group.WORLD}
+        groups = {axes[0]: world_group}
         coords = {axes[0]: rank}
     else:
         nb, nr = sizes
         b, r = divmod(rank, nr)
         coords = {axes[0]: b, axes[1]: r}
         groups = {}
-        # Every rank creates every group, in this order.
         for i in range(nb):
-            g = dist.new_group([i * nr + j for j in range(nr)])
+            g = dist.new_group([i * nr + j for j in range(nr)], timeout=timeout)
             if i == b:
                 groups[axes[1]] = g
         for j in range(nr):
-            g = dist.new_group([i * nr + j for i in range(nb)])
+            g = dist.new_group([i * nr + j for i in range(nb)], timeout=timeout)
             if j == r:
                 groups[axes[0]] = g
     return Mesh(
         shape=dict(zip(axes, sizes)), coords=coords, groups=groups,
-        device=dev, backend=dist.get_backend(),
+        device=dev, backend=dist.get_backend(), world=world_group, timeout=timeout,
     )
 
 
@@ -146,11 +160,13 @@ def make_row_mesh(
     num_devices: Optional[int] = None,
     *,
     device: Optional[Union[str, torch.device]] = None,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> Mesh:
     """1-D mesh over every rank of the default group (made if absent; see
     the module's docstring).  `num_devices`, where given, must be the world
     size: a rank outside the mesh would have nothing to run.  `device`
-    defaults to CUDA (this rank's card)."""
+    defaults to CUDA (this rank's card); `timeout` bounds the mesh's
+    collectives (see the module's docstring)."""
     world = dist.get_world_size() if dist.is_initialized() else None
     if num_devices is not None and world is not None and num_devices != world:
         raise ValueError(
@@ -160,15 +176,17 @@ def make_row_mesh(
     size = num_devices if num_devices is not None else (
         world if world is not None else int(os.environ.get("WORLD_SIZE", 1))
     )
-    return _make_mesh((ROWS_AXIS,), (size,), device)
+    return _make_mesh((ROWS_AXIS,), (size,), device, timeout)
 
 
 def make_batch_row_mesh(
-    batch: int, rows: int, *, device: Optional[Union[str, torch.device]] = None
+    batch: int, rows: int, *, device: Optional[Union[str, torch.device]] = None,
+    timeout: Optional[datetime.timedelta] = None,
 ) -> Mesh:
     """2-D (batch, rows) mesh: queries split over `batch`, index rows over
-    `rows`; batch x rows must be the world size."""
-    return _make_mesh((BATCH_AXIS, ROWS_AXIS), (batch, rows), device)
+    `rows`; batch x rows must be the world size.  `timeout` as in
+    `make_row_mesh`."""
+    return _make_mesh((BATCH_AXIS, ROWS_AXIS), (batch, rows), device, timeout)
 
 
 def row_sharding(mesh: Mesh):

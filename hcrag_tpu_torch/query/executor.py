@@ -50,10 +50,59 @@ Usage:
     fut = ex.submit(query_embedding)          # thread-safe
     scores, indices = fut.result()
     ex.shutdown()
+
+Over a sharded engine (`parallel.ShardedQueryEngine`, one process per rank)
+every rank's step must join the same collectives in the same order, so the
+executor runs a rank protocol, at any world size (one rank included):
+
+* every rank constructs `BatchedExecutor(engine, ...)` with the same
+  arguments, and every rank calls `shutdown()`.  The constructor makes a
+  gloo group over the mesh's ranks (the headers; it takes the mesh's
+  `timeout`) and the ranks exchange a fingerprint of `mode`, `top_k`,
+  `expansion_depth`, `batch_size`, `batch_sizes`, `pipeline_depth` and the
+  engine's `resolved_kernel_config`: on a mismatch every rank raises the
+  same `ValueError` (it would hang or mis-shape a collective);
+* rank 0 (the mesh's global rank 0) takes the requests and batches them as
+  above.  Its dispatcher checks the batch on the host (the width against
+  the index's), then sends a header (step, dispatch size, sequence number)
+  over the gloo group, then the padded, normalized batch [dispatch_b, d]
+  f32 over the mesh's world group on the engine's device (NCCL where each
+  rank has a card), and only then issues the step.  The queries are
+  normalized once, on rank 0, and travel as bits.  Only the dispatcher
+  thread issues collectives; the resolver issues none.  An idle dispatcher
+  sends an idle header every second (or a quarter of the mesh's timeout),
+  so the followers' receives do not time out while rank 0 waits for work;
+* every other rank follows: `submit` raises; one thread receives each
+  header and batch, checks that the sequence number is the next one, runs
+  the same step with the executor's `top_k` and `expansion_depth`, and
+  drops the outputs (at most `pipeline_depth` steps in flight on the
+  device), so `batches_dispatched` equals rank 0's;
+* a batch that fails on rank 0 before its header goes out (a request of
+  another width) fails its own requests only.  A step that raises on any
+  rank after the header is fatal to the group: the other ranks sit in a
+  collective that will never complete, until the mesh's timeout frees
+  them (build the mesh with a finite one).  Over gloo groups (the CPU, or
+  ranks sharing a card), where a collective blocks the host and raises at
+  the timeout, rank 0 then fails that batch, every batch in flight and
+  every queued request, and later submits raise with the cause; each
+  follower's loop ends with the error, which its `shutdown()` re-raises.
+  Over NCCL (a card per rank) a step only enqueues its collectives, so
+  the dispatcher may see no error: there NCCL's watchdog acts at the
+  timeout (by default it ends the process), and this contract is untested;
+* rank 0's `shutdown()` drains the batches in flight, sends the stop, and
+  fails what is left; a follower's waits, for at most its `timeout`, for
+  the stop (or for its loop to end with an error: a rank 0 that is gone
+  sends no header within the mesh's timeout) and joins its thread.  Each
+  rank then destroys the executor's gloo group.
+
+While an executor serves a multi-rank engine, nothing else may call that
+engine: another caller's collectives would interleave with the
+dispatcher's.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -62,6 +111,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+#: The rank protocol's header ops (int64 [op, dispatch size, sequence]).
+_STOP, _STEP, _IDLE = 0, 1, 2
 
 
 @dataclasses.dataclass
@@ -173,6 +226,12 @@ class SlotFuture:
         )
 
 
+def _fail_all(futs: Sequence[SlotFuture], exc: BaseException) -> None:
+    for fut in futs:
+        fut._fail(exc)
+        fut._fire_callbacks()
+
+
 class BatchedExecutor:
     def __init__(
         self,
@@ -186,29 +245,44 @@ class BatchedExecutor:
         mode: str = "retrieval",
         batch_sizes: Optional[Sequence[int]] = None,
     ):
-        if mode not in ("retrieval", "full"):
-            raise ValueError(f"mode must be 'retrieval' or 'full', got {mode!r}")
-        mesh = getattr(engine, "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            # Every rank of a sharded engine must make the same calls; one
-            # dispatcher per rank would batch different requests.
-            raise ValueError(
-                f"BatchedExecutor serves one rank; this engine spans {mesh.size}. "
-                "Serving over several ranks needs rank 0's dispatcher to "
-                "broadcast each batch to the others (ROADMAP A, item 9)"
-            )
-        self.engine = engine
-        self.device = torch.device(engine.device)
-        self.batch_size = batch_size
         # Allowed dispatch sizes, ascending: the dispatcher ships the
         # smallest that covers the waiting requests.
         sizes = sorted(set(batch_sizes or [])) or [batch_size]
         if sizes[-1] < batch_size:
             sizes.append(batch_size)
         self.batch_sizes = [s for s in sizes if s <= batch_size]
+        mesh = getattr(engine, "mesh", None)
+        # The rank protocol (see the module's docstring): headers over a
+        # gloo group, batches over the mesh's world group; none for an
+        # engine of one process.
+        self._ctrl = self._world = None
+        self._rank, self._d, self._idle_s = 0, None, float("inf")
+        if mesh is not None:
+            self._ctrl = dist.new_group(backend="gloo", timeout=mesh.timeout)
+            self._world = mesh.world
+            self._rank = dist.get_rank()
+            self._d = int(engine.index.emb.shape[1])
+            # A follower's shutdown waits this long for rank 0's stop.
+            self._wait_s = (mesh.timeout or dist.default_pg_timeout).total_seconds()
+            self._idle_s = min(1.0, self._wait_s / 4)
+            try:
+                self._check_same_arguments(dict(
+                    mode=mode, top_k=top_k, expansion_depth=expansion_depth,
+                    batch_size=batch_size, batch_sizes=self.batch_sizes,
+                    pipeline_depth=pipeline_depth,
+                    engine=engine.resolved_kernel_config(batch_size, top_k)))
+            except ValueError:
+                self._close_group()
+                raise
+        if mode not in ("retrieval", "full"):
+            raise ValueError(f"mode must be 'retrieval' or 'full', got {mode!r}")
+        self.engine = engine
+        self.device = torch.device(engine.device)
+        self.batch_size = batch_size
         self.max_wait_s = max_wait_ms / 1000.0
         self.top_k = top_k
         self.expansion_depth = expansion_depth
+        self.pipeline_depth = pipeline_depth
         self.mode = mode
         self._cuda = self.device.type == "cuda"
         # The card's index, fixed here: each thread selects it before its
@@ -229,12 +303,33 @@ class BatchedExecutor:
         # Dispatched, unresolved batches, at most `pipeline_depth`.
         self._inflight: "queue.Queue" = queue.Queue(maxsize=pipeline_depth)
         self._stop = threading.Event()
+        # The error that ended the rank protocol (a step that raised after
+        # its header went out), and the last batch's sequence number.
+        self._fatal: Optional[BaseException] = None
+        self._seq = 0
         self.batches_dispatched = 0
         self.requests_served = 0
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._resolver = threading.Thread(target=self._resolve_loop, daemon=True)
+        self._resolver = None
+        if self._rank == 0:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._resolver = threading.Thread(target=self._resolve_loop, daemon=True)
+            self._resolver.start()
+        else:
+            self._thread = threading.Thread(target=self._follow, daemon=True)
         self._thread.start()
-        self._resolver.start()
+
+    def _check_same_arguments(self, fingerprint: dict) -> None:
+        """Every rank's fingerprint against rank 0's; on a mismatch every
+        rank raises the same `ValueError`."""
+        every = [None] * dist.get_world_size(self._ctrl)
+        dist.all_gather_object(every, fingerprint, group=self._ctrl)
+        other = [r for r, f in enumerate(every) if f != every[0]]
+        if other:
+            raise ValueError(
+                "BatchedExecutor takes the same arguments on every rank of a sharded "
+                f"engine; rank(s) {other} differ from rank 0: {every[other[0]]} "
+                f"against {every[0]}"
+            )
 
     # -- submission ----------------------------------------------------
     def submit(self, query_embedding: np.ndarray) -> SlotFuture:
@@ -246,11 +341,19 @@ class BatchedExecutor:
 
     def submit_many(self, embs: np.ndarray) -> List[SlotFuture]:
         """Enqueue a block of [m, d] query embeddings under one lock."""
+        if self._rank != 0:
+            raise RuntimeError(
+                f"requests go to rank 0: rank {self._rank} follows rank 0's batches"
+            )
         embs = np.asarray(embs, np.float32)
         if embs.ndim != 2:
             embs = embs.reshape(1, -1)
         futs = [SlotFuture() for _ in range(embs.shape[0])]
         with self._not_empty:
+            if self._fatal is not None:
+                raise RuntimeError(
+                    f"executor stopped: a step failed across ranks ({self._fatal!r})"
+                ) from self._fatal
             if self._stop.is_set():
                 raise RuntimeError("executor is shut down")
             self._blocks.append((embs, futs, 0))
@@ -285,10 +388,15 @@ class BatchedExecutor:
         the batch ships however full it is.  While the in-flight queue is
         full, keep absorbing requests until the batch is full or a slot
         frees: an early ship would only wait on the queue while its padded
-        slots cost device time."""
+        slots cost device time.  Returns nothing after `_idle_s` without a
+        request (the rank protocol's idle header)."""
         with self._not_empty:
+            idle_until = time.monotonic() + self._idle_s
             while self._pending_n == 0 and not self._stop.is_set():
-                self._not_empty.wait(timeout=0.1)
+                remaining = idle_until - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._not_empty.wait(timeout=min(0.1, remaining))
             if self._pending_n == 0:
                 return [], []
             if self._pending_n < self.batch_size:
@@ -309,9 +417,12 @@ class BatchedExecutor:
     def _queries(self, arrs: List[np.ndarray], dispatch_b: int) -> torch.Tensor:
         """The batch [dispatch_b, d], zero-padded and L2-normalized on the
         host, on the engine's device: on CUDA written into pinned memory and
-        copied without waiting."""
+        copied without waiting.  Under the rank protocol a width other than
+        the index's raises here, before the batch's header goes out."""
         batch = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=0)
         d = batch.shape[1]
+        if self._d is not None and d != self._d:
+            raise ValueError(f"a query of width {d}; the index's rows have {self._d}")
         host = torch.zeros((dispatch_b, d), dtype=torch.float32, pin_memory=self._cuda)
         norms = np.maximum(np.linalg.norm(batch, axis=1, keepdims=True), 1e-12)
         np.divide(batch, norms, out=host.numpy()[: batch.shape[0]])
@@ -319,40 +430,107 @@ class BatchedExecutor:
             return host
         return host.to(self.device, non_blocking=True)
 
+    def _step(self, q: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The mode's step on the device batch, without waiting for it."""
+        if self.mode == "retrieval":
+            return tuple(self.engine.retrieve_batch_device(q, top_k=self.top_k))
+        return tuple(self.engine.query_batch_device(
+            q, top_k=self.top_k, expansion_depth=self.expansion_depth,
+        )[:7])
+
+    def _send_header(self, op: int, size: int) -> None:
+        header = torch.tensor([op, size, self._seq], dtype=torch.int64)
+        dist.broadcast(header, src=0, group=self._ctrl)
+
     def _loop(self) -> None:
         """Dispatcher: batch requests and issue their steps without
-        waiting for the device."""
+        waiting for the device; under the rank protocol, send each batch to
+        the other ranks first, an idle header while there is no work, and
+        the stop at the end."""
         if self._cuda:
             torch.cuda.set_device(self._card)
-        while not self._stop.is_set():
-            arrs, futs = self._collect()
-            if not futs:
-                continue
-            n = len(futs)
-            dispatch_b = next(
-                (s for s in self.batch_sizes if s >= n), self.batch_size
-            )
-            try:
-                q = self._queries(arrs, dispatch_b)
-                if self.mode == "retrieval":
-                    out = tuple(self.engine.retrieve_batch_device(q, top_k=self.top_k))
-                else:
-                    out = tuple(self.engine.query_batch_device(
-                        q, top_k=self.top_k, expansion_depth=self.expansion_depth,
-                    )[:7])
-                done = None
-                if self._cuda:
-                    done = torch.cuda.Event()
-                    done.record()
+        try:
+            while not self._stop.is_set():
+                arrs, futs = self._collect()
+                if futs:
+                    self._dispatch(arrs, futs)
+                elif self._ctrl is not None:
+                    self._send_header(_IDLE, 0)
+            if self._ctrl is not None:
+                self._send_header(_STOP, 0)
+        except Exception as e:  # a collective failed: the protocol is over
+            with self._lock:
+                self._fatal = e
+                self._stop.set()
+            self._fail_queued(e)
+
+    def _dispatch(self, arrs: List[np.ndarray], futs: List[SlotFuture]) -> None:
+        n = len(futs)
+        dispatch_b = next((s for s in self.batch_sizes if s >= n), self.batch_size)
+        try:
+            q = self._queries(arrs, dispatch_b)
+        except Exception as e:  # found on the host: fails this batch alone
+            _fail_all(futs, e)
+            return
+        # The send and the step both read q from this thread's stream (an
+        # NCCL send makes it wait on NCCL's stream and keeps q until done),
+        # so the allocator cannot hand q's memory out before both; the
+        # resolver's copy stream reads only the outputs.
+        try:
+            if self._ctrl is not None:
+                self._seq += 1
+                self._send_header(_STEP, dispatch_b)
+                dist.broadcast(q, src=0, group=self._world)
+            out = self._step(q)
+            done = None
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record()
+        except Exception as e:  # a failed step fails its requests
+            _fail_all(futs, e)
+            if self._ctrl is not None:  # ... and, after its header, the group
+                raise
+            return
+        self.batches_dispatched += 1
+        batch_res = _BatchResult(self.mode)
+        for i, fut in enumerate(futs):
+            fut._bind(batch_res, i)
+        self._inflight.put((out, done, batch_res, futs))
+
+    def _follow(self) -> None:
+        """A follower's loop: receive each header and batch from rank 0 and
+        run the same step, its outputs dropped, at most `pipeline_depth`
+        steps in flight on the device; ends at rank 0's stop, or with the
+        error that `shutdown` re-raises."""
+        if self._cuda:
+            torch.cuda.set_device(self._card)
+        in_flight = collections.deque()
+        try:
+            while True:
+                header = torch.empty(3, dtype=torch.int64)
+                dist.broadcast(header, src=0, group=self._ctrl)
+                op, size, seq = header.tolist()
+                if op == _STOP:
+                    return
+                if op == _IDLE:
+                    continue
+                if seq != self._seq + 1:
+                    raise RuntimeError(
+                        f"rank {self._rank} expected batch {self._seq + 1} from rank 0, "
+                        f"got {seq}"
+                    )
+                self._seq = seq
+                q = torch.empty((size, self._d), dtype=torch.float32, device=self.device)
+                dist.broadcast(q, src=0, group=self._world)
+                if len(in_flight) == self.pipeline_depth:
+                    in_flight.popleft().synchronize()
+                self._step(q)
                 self.batches_dispatched += 1
-                batch_res = _BatchResult(self.mode)
-                for i, fut in enumerate(futs):
-                    fut._bind(batch_res, i)
-                self._inflight.put((out, done, batch_res, futs))
-            except Exception as e:  # a failed dispatch fails its requests
-                for fut in futs:
-                    fut._fail(e)
-                    fut._fire_callbacks()
+                if self._cuda:
+                    in_flight.append(torch.cuda.Event())
+                    in_flight[-1].record()
+        except Exception as e:  # re-raised by shutdown
+            self._fatal = e
 
     # -- resolver ------------------------------------------------------
     def _readback(self, out: Tuple[torch.Tensor, ...], done) -> tuple:
@@ -378,7 +556,7 @@ class BatchedExecutor:
 
     def _resolve_loop(self) -> None:
         """Resolver: read batches back, in dispatch order, while dispatch
-        goes on."""
+        goes on; after a fatal step, fail them instead."""
         if self._cuda:
             torch.cuda.set_device(self._card)
         while not self._stop.is_set() or not self._inflight.empty():
@@ -386,22 +564,59 @@ class BatchedExecutor:
                 out, done, batch_res, futs = self._inflight.get(timeout=0.1)
             except queue.Empty:
                 continue
-            try:
-                batch_res.payload = self._readback(out, done)
-                batch_res.resolve_time = time.monotonic()
-                self.requests_served += len(futs)
-            except Exception as e:  # a failed readback fails its batch
-                batch_res.exc = e
+            if self._fatal is not None:
+                batch_res.exc = self._fatal
+            else:
+                try:
+                    batch_res.payload = self._readback(out, done)
+                    batch_res.resolve_time = time.monotonic()
+                    self.requests_served += len(futs)
+                except Exception as e:  # a failed readback fails its batch
+                    batch_res.exc = e
             del out
             batch_res.event.set()
             for fut in futs:
                 if fut._callbacks is not None:
                     fut._fire_callbacks()
 
-    def shutdown(self) -> None:
-        """Let in-flight batches drain (up to 10 s), stop both threads, then
-        fail every request still queued."""
-        deadline = 10.0
+    def _fail_queued(self, exc: BaseException) -> None:
+        """Fail every request still queued."""
+        with self._lock:
+            leftovers = [
+                f for _, bfuts, off in self._blocks for f in bfuts[off:]
+            ]
+            self._blocks.clear()
+            self._pending_n = 0
+        _fail_all([f for f in leftovers if not f.done()], exc)
+
+    def _close_group(self) -> None:
+        """Destroy the rank protocol's gloo group (once)."""
+        if self._ctrl is not None:
+            dist.destroy_process_group(self._ctrl)
+            self._ctrl = None
+
+    def shutdown(self, timeout: Optional[float] = None) -> None:
+        """Rank 0 (or an engine of one process): let in-flight batches
+        drain for up to `timeout` seconds (None: 10), stop both threads
+        (under the rank protocol the dispatcher sends the stop first), then
+        fail every request still queued.  A follower: wait up to `timeout`
+        seconds (None: the mesh's timeout, torch's default of 30 minutes
+        without one) for rank 0's stop, or for its loop to end with an
+        error, which is re-raised here; past the bound raise
+        `TimeoutError` (the loop goes on, and a later call waits again).
+        Under the rank protocol, the group of the headers is destroyed once
+        this rank's thread has ended."""
+        if self._rank != 0:
+            self._thread.join(self._wait_s if timeout is None else timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(
+                    f"rank {self._rank}: rank 0 did not stop within the bound"
+                )
+            self._close_group()
+            if self._fatal is not None:
+                raise self._fatal
+            return
+        deadline = 10.0 if timeout is None else timeout
         t0 = time.time()
         while not self._inflight.empty() and time.time() - t0 < deadline:
             time.sleep(0.05)
@@ -410,14 +625,6 @@ class BatchedExecutor:
             self._not_empty.notify_all()
         self._thread.join(timeout=5)
         self._resolver.join(timeout=5)
-        with self._lock:
-            leftovers = [
-                f for _, bfuts, off in self._blocks for f in bfuts[off:]
-            ]
-            self._blocks.clear()
-            self._pending_n = 0
-        exc = RuntimeError("executor shut down before request was served")
-        for f in leftovers:
-            if not f.done():
-                f._fail(exc)
-                f._fire_callbacks()
+        self._fail_queued(RuntimeError("executor shut down before request was served"))
+        if not self._thread.is_alive():
+            self._close_group()

@@ -1085,3 +1085,60 @@ def test_sharded_two_ranks_on_one_card_equal_unsharded(cuda):
     for out in ranks:
         for mode in W.CARD_MODES:
             _same_fields(out[mode], want[mode])
+
+
+def _served_against_unsharded(got: dict, dev) -> None:
+    """Served results of `torch_sharded_workers.serve_traffic` at the card
+    tests' width against the unsharded engine on the card: indices exact,
+    scores within 1e-6."""
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from tests import torch_sharded_workers as W
+
+    index, graph = W.index_and_graph(W.CARD_ROWS, W.CARD_DIM)
+    q = W.serve_queries(dim=W.CARD_DIM)
+    for mode, opts in W.CARD_MODES.items():
+        want = QueryEngine(index, graph, device=dev, ell_max_degree=8,
+                           **opts).query_batch(q, top_k=10)
+        np.testing.assert_array_equal(got[mode]["top_indices"], want.top_indices)
+        np.testing.assert_allclose(got[mode]["top_scores"], want.top_scores, atol=1e-6,
+                                   rtol=0)
+
+
+def test_executor_over_one_nccl_rank_equals_unsharded(cuda):
+    """`BatchedExecutor` over `ShardedQueryEngine` at world size 1 over
+    NCCL: the rank protocol's sends go over NCCL, and the traffic of the
+    CPU tests (blocks and 4 client threads) is served as the unsharded
+    engine answers, in both card modes."""
+    import torch.distributed as dist
+
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from tests import torch_sharded_workers as W
+
+    assert not dist.is_initialized()
+    mesh = make_row_mesh()
+    try:
+        assert mesh.size == 1 and mesh.backend == "nccl"
+        index, graph = W.index_and_graph(W.CARD_ROWS, W.CARD_DIM)
+        q = W.serve_queries(dim=W.CARD_DIM)
+        got = {}
+        for mode, opts in W.CARD_MODES.items():
+            engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, **opts)
+            got[mode], batches, seq = W.serve(engine, 0, lambda ex: W.serve_traffic(ex, q),
+                                              **W.SERVE_KW)
+            assert batches == seq >= 6
+    finally:
+        dist.destroy_process_group()
+    _served_against_unsharded(got, cuda)
+
+
+def test_executor_over_two_gloo_ranks_on_one_card_equals_unsharded(cuda):
+    """Two gloo ranks spawned on the one card, rank 0 serving: its results
+    equal the unsharded engine's on the card, and both ranks step every
+    batch."""
+    from hcrag_tpu_torch.parallel.launch import run_ranks
+    from tests import torch_sharded_workers as W
+
+    ranks = run_ranks(W.card_serving_cases, 2, timeout_s=300)
+    for mode in W.CARD_MODES:
+        assert ranks[1][mode][1:] == ranks[0][mode][1:]
+    _served_against_unsharded({m: ranks[0][m][0] for m in W.CARD_MODES}, cuda)

@@ -3,13 +3,13 @@ checkpoints over 2 gloo ranks, and the refusals.
 
   * World size 1 (no spawn: `make_row_mesh` makes a one-rank group in
     memory): `ShardedQueryEngine` equals `QueryEngine` bit for bit in the
-    f32 and int8 + rescore modes, and `BatchedExecutor` over it serves the
-    same results.
+    f32 and int8 + rescore modes, and `BatchedExecutor` over it (the rank
+    protocol at world size 1) serves the same results.
   * Checkpoints at 2 shards (one spawn, `tests/torch_sharded_workers.
     checkpoint_cases`), in each mode: results after a restore into an
     engine built from other rows equal those before the save; the manifest
     names every bank the mode uses; a restore into another mode or another
-    world size raises; `BatchedExecutor` refuses an engine of 2 ranks.
+    world size raises.
   * Without CUDA and without `device="cpu"`, the sharded engine and
     `make_row_mesh` raise.
 """
@@ -157,12 +157,6 @@ def test_restore_refuses_another_world_size(checkpoints, index_graph, cpu_mesh):
     engine = ShardedQueryEngine(index, graph, mesh=cpu_mesh, ell_max_degree=8)
     with pytest.raises(ValueError, match="mesh_shape"):
         restore_sharded_index(engine, os.path.join(directory, "f32"))
-
-
-def test_executor_refuses_more_than_one_rank(checkpoints):
-    _, ranks = checkpoints
-    assert all("spans 2" in out["executor"] and "item 9" in out["executor"]
-               for out in ranks)
 
 
 def test_without_cuda_the_sharded_engine_raises(index_graph):

@@ -1,4 +1,5 @@
-"""Rank functions of the sharded-engine tests (`tests/test_torch_sharded*.py`).
+"""Rank functions of the sharded-engine tests (`tests/test_torch_sharded*.py`,
+`tests/test_torch_serving_ranks.py`).
 
 They run in processes spawned by `hcrag_tpu_torch.parallel.launch.run_ranks`
 (gloo on the CPU), so this module imports neither JAX nor the JAX package:
@@ -9,7 +10,10 @@ the tests make the same ones for the JAX side.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
+import threading
+import time
 
 import numpy as np
 import torch
@@ -209,14 +213,13 @@ def engine_cases(rank, world):
 def checkpoint_cases(rank, world, directory):
     """At 2 shards, per mode of `CHECKPOINT_MODES`: results before a save,
     and after restoring into an engine built from other rows; then the
-    refusals (another mode; `BatchedExecutor` over more than one rank)."""
+    refusal of another mode."""
     torch.set_num_threads(1)
     from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
     from hcrag_tpu_torch.parallel.checkpoint import (
         restore_sharded_index,
         save_sharded_index,
     )
-    from hcrag_tpu_torch.query.executor import BatchedExecutor
 
     mesh = make_row_mesh(device="cpu")
     index, graph = index_and_graph()
@@ -241,17 +244,334 @@ def checkpoint_cases(rank, world, directory):
         out["wrong_mode"] = None
     except ValueError as e:
         out["wrong_mode"] = str(e)
-    try:
-        BatchedExecutor(wrong_mode)
-        out["executor"] = None
-    except ValueError as e:
-        out["executor"] = str(e)
     return out
 
 
 def sharded_cases(rank, world):
     """`topk_cases` and `engine_cases` in one spawn."""
     return {"topk": topk_cases(rank, world), "engine": engine_cases(rank, world)}
+
+
+# ---------------------------------------------------------------------------
+# BatchedExecutor over the sharded engine (tests/test_torch_serving_ranks.py)
+# ---------------------------------------------------------------------------
+SERVE_WAIT = 60  # seconds any one served request may take
+#: The modes served against the unsharded engine, on 2 and 4 ranks (the
+#: dispatch sizes stay under 64 queries, so `rescore_super` selects by B5
+#: tiles, as its unsharded engine does at these sizes).
+SERVE_MODES = ("f32", "int8", "rescore_super", "residual", "int8_only")
+JAX_SERVE_MODES = ("f32", "int8")  # against JAX's executor, on 4 ranks
+#: The traffic: 64 requests in blocks of 16 from one thread while 4 client
+#: threads submit 24 more one by one.
+SERVE_BLOCKS, SERVE_BLOCK, SERVE_SINGLES, SERVE_CLIENTS = 64, 16, 24, 4
+SERVE_KW = dict(batch_size=16, batch_sizes=(4, 8, 16), top_k=10)
+GRAPH_DEPTHS = (1, 3)  # full mode over the split graph, on 2 ranks
+#: 19 requests over the 2 x 2 mesh: batches of 8, 8 and a ragged 3.
+BATCH_MESH_REQUESTS, BATCH_MESH_KW = 19, dict(batch_size=8, batch_sizes=(3, 8), top_k=7,
+                                                mode="full", max_wait_ms=50)
+HOST_API_MODES = ("f32", "int8", "rescore_super")  # the host API across 2 ranks
+HOST_TEXT_ROWS = (5, 77, 4001)
+APPEND_ROWS = 1500
+FAIL_TIMEOUT_S = 10.0  # the failure case's group timeout
+FAIL_AT = 3  # the step at which rank 1 raises
+#: A follower's shutdown bound, and how long rank 0 serves past it.
+FOLLOWER_BOUND_S, RANK0_SERVES_S = 1.0, 4.0
+
+
+def serve_queries(n=SERVE_BLOCKS + SERVE_SINGLES, dim=ENGINE_DIM):
+    return normalized(np.random.default_rng(31), n, dim)
+
+
+def served_arrays(results) -> dict:
+    """Served results stacked per field, under `FIELDS`' names (retrieval:
+    scores and indices only)."""
+    if isinstance(results[0], tuple):
+        return {"top_scores": np.stack([r[0] for r in results]),
+                "top_indices": np.stack([r[1] for r in results])}
+    return {f: np.stack([np.asarray(getattr(r, "expanded_count" if f == "expanded_counts"
+                                            else f)) for r in results])
+            for f in FIELDS}
+
+
+def serve_traffic(ex, queries) -> dict:
+    """Rank 0's traffic: the first `SERVE_BLOCKS` queries in blocks from
+    this thread while `SERVE_CLIENTS` threads submit the rest one by one;
+    the served results in request order."""
+    futs = [None] * len(queries)
+
+    def client(c):
+        for i in range(SERVE_BLOCKS + c, len(queries), SERVE_CLIENTS):
+            futs[i] = ex.submit(queries[i])
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for lo in range(0, SERVE_BLOCKS, SERVE_BLOCK):
+        futs[lo:lo + SERVE_BLOCK] = ex.submit_many(queries[lo:lo + SERVE_BLOCK])
+    for t in threads:
+        t.join(SERVE_WAIT)
+    return served_arrays([f.result(timeout=SERVE_WAIT) for f in futs])
+
+
+def serve(engine, rank, work, follower_work=None, **kw):
+    """Every rank constructs the executor and shuts it down; rank 0 runs
+    `work(ex)`, the others `follower_work(ex)`.  Returns (that output,
+    the batches this rank stepped, the last batch's sequence number)."""
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    ex = BatchedExecutor(engine, **kw)
+    try:
+        if rank == 0:
+            out = work(ex)
+        else:
+            out = follower_work(ex) if follower_work else None
+    finally:
+        ex.shutdown()
+    return out, ex.batches_dispatched, ex._seq
+
+
+def _submit_many(queries):
+    return lambda ex: served_arrays([f.result(timeout=SERVE_WAIT)
+                                     for f in ex.submit_many(queries)])
+
+
+def _follower_submit(ex):
+    try:
+        ex.submit(np.zeros(ENGINE_DIM, np.float32))
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def _wrong_width_then_served(queries):
+    """A request of another width (its batch fails on rank 0), then a
+    block served on every rank."""
+    def work(ex):
+        bad = ex.submit(np.ones(ENGINE_DIM // 2, np.float32))
+        try:
+            bad.result(timeout=SERVE_WAIT)
+            err = None
+        except ValueError as e:
+            err = str(e)
+        return err, _submit_many(queries)(ex)
+    return work
+
+
+def _shutdown_with_queued(queries):
+    """Many blocks submitted, then shutdown at once: each request is served
+    or fails with the shutdown's error."""
+    def work(ex):
+        futs = [f for _ in range(25) for f in ex.submit_many(queries)]
+        ex.shutdown()
+        outcome = []
+        for f in futs:
+            try:
+                f.result(timeout=SERVE_WAIT)
+                outcome.append(None)
+            except RuntimeError as e:
+                outcome.append(str(e))
+        return outcome, ex.requests_served
+    return work
+
+
+def _bounded_shutdown(ex):
+    """A follower's shutdown with a bound that rank 0 outlasts: the
+    `TimeoutError` and the seconds it took (`serve` then waits again)."""
+    t0 = time.monotonic()
+    try:
+        ex.shutdown(timeout=FOLLOWER_BOUND_S)
+    except TimeoutError as e:
+        return str(e), time.monotonic() - t0
+    return None, time.monotonic() - t0
+
+
+def n_groups() -> int:
+    """The process groups this rank holds."""
+    return len(torch.distributed.distributed_c10d._world.pg_map)
+
+
+def _mismatch(engine, rank):
+    """Rank 3 asks for another top_k: every rank's constructor raises."""
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    try:
+        BatchedExecutor(engine, batch_size=8, top_k=5 if rank == 3 else 10)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def serving_cases(rank, world):
+    """`BatchedExecutor` over the sharded engine on `world` ranks (row
+    mesh): each `SERVE_MODES` mode under the traffic (retrieval); at 4
+    ranks also JAX's cases (16 requests by one `submit_many`, batch 8,
+    both modes), the 2 x 2 batch mesh, a follower's submit, arguments that
+    differ on one rank, a request of another width and a shutdown with
+    requests queued; at 2 ranks full mode over the split graph at depths 1
+    and 3."""
+    torch.set_num_threads(1)
+    from hcrag_tpu_torch.parallel import (
+        ShardedQueryEngine,
+        make_batch_row_mesh,
+        make_row_mesh,
+    )
+
+    mesh = make_row_mesh(device="cpu")
+    index, graph = index_and_graph()
+    q = serve_queries()
+    out = {"traffic": {}, "jax": {}, "graph": {}, "groups": [n_groups()]}
+    for mode in SERVE_MODES:
+        engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8,
+                                    **ENGINE_MODES[mode][0])
+        out["traffic"][mode] = serve(engine, rank, lambda ex: serve_traffic(ex, q), **SERVE_KW)
+        if world == 4 and mode in JAX_SERVE_MODES:
+            for kind in ("retrieval", "full"):
+                out["jax"][mode, kind] = serve(
+                    engine, rank, _submit_many(engine_queries(16)), batch_size=8, top_k=10,
+                    max_wait_ms=50, mode=kind)
+        if world == 4 and mode == "f32":
+            out["follower_submit"] = serve(engine, rank, lambda ex: None, _follower_submit,
+                                           batch_size=8)
+            out["mismatch"] = _mismatch(engine, rank)
+            out["wrong_width"] = serve(engine, rank, _wrong_width_then_served(q[:8]),
+                                       batch_size=8, top_k=10, max_wait_ms=50)
+            out["queued"] = serve(engine, rank, _shutdown_with_queued(q[:16]), batch_size=8,
+                                  top_k=10)
+            out["bounded"] = serve(engine, rank, lambda ex: time.sleep(RANK0_SERVES_S),
+                                   _bounded_shutdown, batch_size=8)
+    out["groups"].append(n_groups())
+    if world == 4:
+        engine = ShardedQueryEngine(index, graph, mesh=make_batch_row_mesh(2, 2, device="cpu"),
+                                    ell_max_degree=8, shard_queries=True)
+        out["batch_mesh"] = serve(engine, rank, _submit_many(q[:BATCH_MESH_REQUESTS]),
+                                  **BATCH_MESH_KW)
+    else:
+        engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, shard_graph=True)
+        for depth in GRAPH_DEPTHS:
+            out["graph"][depth] = serve(engine, rank, lambda ex: serve_traffic(ex, q),
+                                        mode="full", expansion_depth=depth, **SERVE_KW)
+    return out
+
+
+def host_index_and_graph():
+    """`index_and_graph`'s rows with the database rows made Product rows
+    with an entity id, so that `hybrid_search` finds graph records."""
+    index, graph = index_and_graph()
+    meta = [dict(m, table_name="Product", entity_id=f"P{r}")
+            if m["type"] == "database_table" else m
+            for r, m in enumerate(index.metadata)]
+    return dataclasses.replace(index, metadata=meta), graph
+
+
+def append_rows(index):
+    """`APPEND_ROWS` rows appended to `index` in place, from a seed."""
+    rng = np.random.default_rng(9)
+    n0 = index.n
+    index.append(
+        rng.standard_normal((APPEND_ROWS, ENGINE_DIM)).astype(np.float32),
+        [{"id": f"new_{i}", "type": "database_table", "table_name": "Synthetic",
+          "row_index": n0 + i} for i in range(APPEND_ROWS)],
+        [f"appended row {i} e{i % 100}" for i in range(APPEND_ROWS)],
+    )
+
+
+def host_api_calls(engine, index) -> dict:
+    """The engine's host API on a few of the index's own texts and rows."""
+    from hcrag_tpu_torch.models.reranker import Reranker
+
+    texts = [index.texts[i] for i in HOST_TEXT_ROWS]
+    out = {
+        "process_query": [engine.process_query(t, top_k=5, similarity_threshold=0.0)
+                          for t in texts],
+        "search_by_category": [engine.search_by_category(t, c, top_k=5)
+                               for t in texts for c in (None, "json_table")],
+        "hybrid_search": [engine.hybrid_search(t, limit=5) for t in texts],
+        "find_similar_content": [engine.find_similar_content(np.asarray(index.emb[i]), top_k=5)
+                                 for i in HOST_TEXT_ROWS],
+    }
+    engine.set_reranker(Reranker(seed=3, device=engine.device))
+    out["rerank"] = result_arrays(engine.query_batch(engine_queries(ENGINE_B), top_k=10,
+                                                     rerank=True))
+    engine.set_reranker(None)
+    append_rows(index)
+    engine.refresh_index()
+    out["refresh"] = result_arrays(engine.query_batch(engine_queries(ENGINE_B), top_k=10))
+    return out
+
+
+def host_api_cases(rank, world):
+    """`host_api_calls` on each `HOST_API_MODES` engine, then the serving
+    cases, in one spawn."""
+    torch.set_num_threads(1)
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+
+    mesh = make_row_mesh(device="cpu")
+    out = {}
+    for mode in HOST_API_MODES:
+        index, graph = host_index_and_graph()
+        engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8,
+                                    **ENGINE_MODES[mode][0])
+        out[mode] = host_api_calls(engine, index)
+    return {"host_api": out, "serving": serving_cases(rank, world)}
+
+
+def failure_case(rank, world):
+    """A mesh with a `FAIL_TIMEOUT_S` timeout; rank 1's step raises at its
+    `FAIL_AT`-th batch, and rank 1 then keeps its process (and its
+    connections) for longer than the timeout, so only the timeout frees the
+    others.  Rank 0 serves two blocks of 8, then four more at once, then
+    submits again.  Each rank returns what it saw and the seconds its
+    function took."""
+    torch.set_num_threads(1)
+    t0 = time.monotonic()
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+    from hcrag_tpu_torch.query.executor import BatchedExecutor
+
+    mesh = make_row_mesh(device="cpu", timeout=datetime.timedelta(seconds=FAIL_TIMEOUT_S))
+    index, graph = index_and_graph()
+    engine = ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8)
+    if rank == 1:
+        real, calls = engine.retrieve_batch_device, []
+
+        def failing(q, top_k):
+            calls.append(q.shape[0])
+            if len(calls) == FAIL_AT:
+                raise RuntimeError("injected step failure")
+            return real(q, top_k=top_k)
+
+        engine.retrieve_batch_device = failing
+    q = serve_queries()
+    out = {}
+    ex = BatchedExecutor(engine, batch_size=8, top_k=10, max_wait_ms=50)
+    try:
+        if rank == 0:
+            served = [f.result(timeout=SERVE_WAIT) for lo in (0, 8)
+                      for f in ex.submit_many(q[lo:lo + 8])]
+            out["served"] = served_arrays(served)
+            later = ex.submit_many(q[16:48])
+            out["later"] = []
+            for f in later:
+                try:
+                    f.result(timeout=SERVE_WAIT)
+                    out["later"].append(None)
+                except Exception as e:  # the outcome is the test's subject
+                    out["later"].append(repr(e))
+            try:
+                ex.submit(q[0])
+                out["submit"] = None
+            except RuntimeError as e:
+                out["submit"] = str(e)
+    finally:
+        try:  # past the timeout: the followers' loops end only after it
+            ex.shutdown(timeout=FAIL_TIMEOUT_S + 20)
+            out["shutdown"] = None
+        except Exception as e:  # a follower's loop error, re-raised
+            out["shutdown"] = repr(e)
+    if rank == 1:
+        time.sleep(FAIL_TIMEOUT_S + 5)
+    out["batches"] = ex.batches_dispatched
+    out["seconds"] = time.monotonic() - t0
+    return out
 
 
 #: The card tests' modes (tests/test_torch_cuda.py).
@@ -269,4 +589,17 @@ def card_cases(rank, world):
     q = engine_queries(CARD_B, CARD_DIM)
     return {mode: result_arrays(ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8,
                                                    **opts).query_batch(q, top_k=10))
+            for mode, opts in CARD_MODES.items()}
+
+
+def card_serving_cases(rank, world):
+    """`serve_traffic` through `BatchedExecutor` over each `CARD_MODES`
+    sharded engine on the card (every rank on card 0, gloo)."""
+    from hcrag_tpu_torch.parallel import ShardedQueryEngine, make_row_mesh
+
+    mesh = make_row_mesh(device="cuda")
+    index, graph = index_and_graph(CARD_ROWS, CARD_DIM)
+    q = serve_queries(dim=CARD_DIM)
+    return {mode: serve(ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, **opts),
+                        rank, lambda ex: serve_traffic(ex, q), **SERVE_KW)
             for mode, opts in CARD_MODES.items()}
