@@ -77,13 +77,30 @@ last line:
      path EX — the three examples (`hcrag_tpu_torch.examples.*`) on the
                card as subprocesses, at once, `end_to_end` and
                `path_extraction` over path B's corpus, each exiting 0;
+     path T  — the query encoder's training path (`hcrag_tpu_torch.tools`):
+               a golden set of the corpus's 589 texts with the committed
+               distilled encoder's vectors (the teacher), then
+               `distill_minilm.main` at full width (batch 128, max_len 192)
+               for 200 steps in chunks of 50 (the loss falls; outputs finite
+               and unit-norm) and the train step alone (ms by CUDA events,
+               steps/s, tokens/s, peak memory, a profile, its bound); the
+               run stopped after step 100's checkpoint and resumed to 200
+               against the uninterrupted one (bit-equal or not; embeddings
+               within `T_RESUME_TOL`); the held-out mode (100 steps, 20%
+               held out, one variant a text) and `encoder_confidence` over
+               its encoder (AUC, label balance, the ensemble's lift), loaded
+               onto the card; the held-out embeddings through `query_batch`
+               over the golden bank (one B4 launch; index sets equal to the
+               numpy top-10 where no tie sits at the boundary); 3 steps at
+               batch 8 and max_len 64 on the card and the CPU from the same
+               weights (losses within 1e-5 relative, embeddings within 1e-4);
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
      path E  — serving over the same engine through `BatchedExecutor`
                (retrieval mode; batch 1024, dispatch sizes 128/256/1024,
                pipeline depth 3, 2 ms wait): Poisson traffic at 2,000,
-               5,000, 10,000 and 20,000 req/s for 3 s each (achieved req/s,
+               5,000, 10,000 and 20,000 req/s for 2 s each (achieved req/s,
                p50/p95/p99 latency from scheduled arrival to resolve, mean
                batch fill, the interpreter's full collections), 20,000
                req/s again with the set-up's objects frozen (`gc.freeze`),
@@ -243,11 +260,13 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import resource
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2786,6 +2805,256 @@ def path_ex(tmp: str) -> None:
                    for name in EXAMPLES], "EX", module=None)
 
 
+T_BATCH, T_MAX_LEN, T_STEPS, T_CHUNK, T_LR = 128, 192, 200, 50, 4e-4  # path T
+T_RESUME_AT, T_HOLDOUT_STEPS, T_TIMED_STEPS = 100, 100, 10
+T_PARITY = dict(rows=64, steps=3, batch=8, max_len=64)  # path T-parity, card vs CPU
+# An interrupted and resumed run against the uninterrupted one: equal
+# output embeddings on the card up to this (bit-equal on the CPU, where a
+# test holds it); far below the training's own movement (~1e-1 a chunk).
+T_RESUME_TOL = 1e-4
+T_PARITY_LOSS_RTOL, T_PARITY_EMB_TOL = 1e-5, 1e-4
+
+
+def _nondeterministic_flags(fn) -> list:
+    """The operations torch warns about, while `fn` runs on the card under
+    `use_deterministic_algorithms(True, warn_only=True)`."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0].split(". ")[0][:120]
+                   for w in caught if "determinis" in str(w.message).lower()})
+
+
+def _interrupt_after(dm, step: int):
+    """Make `dm.save_train_state` raise once it has written the checkpoint
+    of `step` (a run stopped there); returns the exception type and the
+    function to restore."""
+    real = dm.save_train_state
+
+    class Interrupted(Exception):
+        pass
+
+    def save(path, params, opt_state, at):
+        real(path, params, opt_state, at)
+        if at >= step:
+            raise Interrupted
+
+    dm.save_train_state = save
+    return Interrupted, lambda: setattr(dm, "save_train_state", real)
+
+
+def path_t(dev, card, rec, tmp: str) -> None:
+    """Path T: the query encoder's training path on the card.  The golden
+    set is the seeded reference-sized corpus's 589 texts, each paired with
+    the committed distilled encoder's vector (the teacher), pickled in the
+    reference layout (`testing.write_golden_set`); then through the tools'
+    `main`:
+      T-train   — `distill_minilm` at full width (batch 128, max_len 192)
+                  for 200 steps in chunks of 50: the last chunk's loss below
+                  the first's, every output finite and unit-norm; then the
+                  train step alone: ms by CUDA events, steps/s, tokens/s
+                  (padded and valid), peak device memory, a profile of one
+                  step and its bound (`utils/bounds.minilm_train_work`);
+      T-resume  — the same run stopped after the checkpoint of step 100 and
+                  resumed to 200, against the uninterrupted run;
+      T-holdout — `--holdout-frac 0.2 --augment 1` for 100 steps, then
+                  `encoder_confidence` over its held-out encoder (AUC, label
+                  balance, the ensemble's lift), the artifacts loaded onto
+                  the card;
+      T-parity  — 3 steps at batch 8 and max_len 64 over 64 pairs from the
+                  same initial weights on the card and on the CPU;
+      T-serve   — the held-out encoder's embeddings of its held-out texts
+                  through `QueryEngine.query_batch` over the golden bank
+                  (f32: one B4 launch), against the trainer's numpy top-10."""
+    from hcrag_tpu_torch.core.dense_index import DenseIndex
+    from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import write_golden_pairs, write_golden_set
+    from hcrag_tpu_torch.tools import distill_minilm as dm
+    from hcrag_tpu_torch.tools import encoder_confidence as ec
+    from hcrag_tpu_torch.utils.bounds import minilm_train_work
+
+    t_path = time.time()
+    pk = write_golden_set(f"{tmp}/t_golden", device=dev)
+    texts, gold = dm.load_pairs(pk)
+    n = len(texts)
+    log(f"[T] golden set: {n} corpus texts with the committed encoder's vectors on the "
+        f"card, in {time.time() - t_path:.1f} s (host clock)")
+    common = ["--pickle", pk, "--batch", str(T_BATCH), "--max-len", str(T_MAX_LEN),
+              "--scan-chunk", str(T_CHUNK), "--lr", str(T_LR)]
+
+    # T-train ---------------------------------------------------------------
+    t0 = time.time()
+    full = dm.main(common + ["--steps", str(T_STEPS), "--out", f"{tmp}/t_full"])
+    train_s = time.time() - t0
+    reports = full["reports"]
+    if [r["step"] for r in reports] != list(range(T_CHUNK, T_STEPS + 1, T_CHUNK)):
+        raise AssertionError(f"T-train: chunks {[r['step'] for r in reports]}")
+    if not reports[-1]["loss"] < reports[0]["loss"]:
+        raise AssertionError(f"T-train: the loss did not fall: {reports}")
+    emb = full["embedder"]
+    if emb.device.type != dev.type:
+        raise AssertionError(f"T-train: the trainer did not run on {dev}")
+    out = emb.encode(texts)
+    if out.shape != (n, DIM) or not np.isfinite(out).all() or \
+            np.abs(np.linalg.norm(out, axis=1) - 1).max() > 1e-5:
+        raise AssertionError("T-train: outputs not finite and unit-norm")
+    log(f"[T-train] {T_STEPS} steps in {train_s:.1f} s with {len(reports)} evaluations "
+        f"(host clock); "
+        f"loss {reports[0]['loss']:.6f} -> {reports[-1]['loss']:.6f}; cos_mean "
+        f"{reports[-1]['cos_mean']:.6f}, cos_min {reports[-1]['cos_min']:.6f}")
+    tok = emb.tokenizer
+    ids, mask = tok.encode_batch(texts)
+    trainer = dm.Distiller(emb.model, ids, mask, gold, lr=T_LR, steps=12000)
+    rows = torch.from_numpy(np.random.default_rng(1).choice(n, T_BATCH, replace=False)).to(dev)
+    step = lambda: trainer.step(rows)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(step, reps=T_TIMED_STEPS, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    work = minilm_train_work(T_BATCH, T_MAX_LEN)
+    valid = int(mask[rows.cpu().numpy()].sum())
+    b_ms, b_by = bound_ms(work["ops"], work["kind"], work["bytes"])
+    log(f"[T-train] train step (B={T_BATCH}, max_len {T_MAX_LEN}, full width): "
+        f"{step_ms:.3f} ms/step (CUDA events, {T_TIMED_STEPS} steps), "
+        f"{1e3 / step_ms:.2f} steps/s, {work['tokens'] / step_ms * 1e3:.0f} padded tokens/s, "
+        f"{valid / step_ms * 1e3:.0f} valid tokens/s "
+        f"({valid} of {work['tokens']}); peak device memory {peak:.2f} GiB; "
+        f"bound {b_ms:.3f} ms ({b_by}: {work['ops'] / 1e12:.3f} TFLOP f32, "
+        f"{work['bytes'] / 1e9:.2f} GB), {100 * b_ms / step_ms:.1f}% of it; {card}")
+    profile_step(step, card, steps=1)
+    rows_, busy_us, _ = profiled(step, 1)
+    gemm_us = sum(us for us, key, _ in rows_ if "gemm" in key.lower())
+    log(f"[T-train] one step's device time: matrix products (cuBLAS / CUTLASS gemm "
+        f"kernels) {gemm_us / 1e3:.3f} ms of {busy_us / 1e3:.3f} ms "
+        f"({100 * gemm_us / max(busy_us, 1e-9):.1f}%), the rest (element-wise, "
+        f"reductions, softmax, copies, AdamW) {(busy_us - gemm_us) / 1e3:.3f} ms")
+    # What torch flags as not deterministic in one step, read only if the
+    # probe first flags operations known to be so (CUDA histc, index_add_).
+    x = torch.rand(4096, device=dev)
+    control = _nondeterministic_flags(lambda: (
+        torch.histc(x, bins=16), torch.zeros(16, device=dev).index_add_(
+            0, torch.arange(4096, device=dev) % 16, x)))
+    flagged = _nondeterministic_flags(step)
+    log(f"[T-train] use_deterministic_algorithms(warn_only) probe, "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}: control "
+        f"(histc, index_add_) flagged {control or 'none'}; one train step flagged "
+        f"{flagged or 'none'}" + ("" if control else " (the probe is blind: no conclusion)"))
+    del trainer, step
+    free("T-train")
+
+    # T-resume --------------------------------------------------------------
+    ck = f"{tmp}/t_ckpt.npz"
+    interrupted, restore = _interrupt_after(dm, T_RESUME_AT)
+    try:
+        dm.main(common + ["--steps", str(T_STEPS), "--out", f"{tmp}/t_resume", "--resume", ck])
+        raise AssertionError("T-resume: the first run was not stopped")
+    except interrupted:
+        pass
+    finally:
+        restore()
+    resumed = dm.main(common + ["--steps", str(T_STEPS), "--out", f"{tmp}/t_resume",
+                                "--resume", ck])
+    if [r["step"] for r in resumed["reports"]] != \
+            list(range(T_RESUME_AT + T_CHUNK, T_STEPS + 1, T_CHUNK)):
+        raise AssertionError(f"T-resume: chunks {[r['step'] for r in resumed['reports']]}")
+    with np.load(f"{tmp}/t_full.npz") as a, np.load(f"{tmp}/t_resume.npz") as b:
+        leaf_diff = {k: float(np.abs(a[k] - b[k]).max()) for k in a.files}
+    p_diff, bitwise = max(leaf_diff.values()), not any(leaf_diff.values())
+    differ = sorted((d, k) for k, d in leaf_diff.items() if d)[::-1]
+    e_diff = float(np.abs(resumed["embedder"].encode(texts) - out).max())
+    r_diff = max(abs(x[k] - y[k]) for x, y in zip(resumed["reports"],
+                                                  reports[T_RESUME_AT // T_CHUNK:])
+                 for k in ("loss", "cos_mean", "cos_min"))
+    log(f"[T-resume] stopped after step {T_RESUME_AT}'s checkpoint, resumed to {T_STEPS}: "
+        f"parameters {'bit-equal' if bitwise else 'not bit-equal'} to the uninterrupted "
+        f"run (max |diff| {p_diff:.3g}), output embeddings max |diff| {e_diff:.3g} (gate "
+        f"{T_RESUME_TOL}), reports max |diff| {r_diff:.3g}; {len(differ)} of "
+        f"{len(leaf_diff)} leaves differ, the largest "
+        f"{[(k.replace('params/', ''), f'{d:.3g}') for d, k in differ[:4]]}")
+    if not e_diff <= T_RESUME_TOL:
+        raise AssertionError(f"T-resume: embeddings differ by {e_diff} > {T_RESUME_TOL}")
+    del full, resumed, emb
+    free("T-resume")
+
+    # T-holdout ---------------------------------------------------------------
+    t0 = time.time()
+    hold = dm.main(common + ["--steps", str(T_HOLDOUT_STEPS), "--holdout-frac", "0.2",
+                             "--augment", "1", "--out", f"{tmp}/t_hold"])["holdout"]
+    conf = ec.main(["--base", f"{tmp}/t_hold", "--pickle", pk, "--out", f"{tmp}/t_conf"])
+    for suffix in ("_holdout.npz", "_holdout_vocab.txt", "_holdout_meta.json",
+                   "_holdout_report.json"):
+        if not os.path.exists(f"{tmp}/t_hold{suffix}"):
+            raise AssertionError(f"T-holdout: no {suffix}")
+    for suffix in ("_calibration.json", "_report.json"):
+        if not os.path.exists(f"{tmp}/t_conf{suffix}"):
+            raise AssertionError(f"T-holdout: no calibration {suffix}")
+    student = load_distilled_embedder(f"{tmp}/t_hold_holdout", device=dev)
+    if student is None or student.device.type != dev.type:
+        raise AssertionError(f"T-holdout: the held-out encoder did not load onto {dev}")
+    ens = conf["ensemble_encoding"]
+    log(f"[T-holdout] {hold['n_train']} train / {hold['n_holdout']} held-out pairs, "
+        f"{hold['n_train_examples']} examples, {T_HOLDOUT_STEPS} steps + calibration in "
+        f"{time.time() - t0:.1f} s (host clock): held-out cos mean "
+        f"{hold['holdout_cos_mean']:.4f}, top-10 agreement {hold['holdout_top10_agreement_mean']:.4f}, "
+        f"paraphrases {hold['paraphrase_top10_agreement_mean']:.4f}, hash ensemble "
+        f"{json.dumps(hold['ensemble_top10_agreement'])}; calibration AUC "
+        f"{conf['auc_combined_heldout_split']:.4f} (max_sim {conf['auc_max_sim_only']:.4f}, "
+        f"agreement {conf['auc_agreement_only']:.4f}), label balance "
+        f"{conf['label_positive_frac']:.3f}, ensemble encoding "
+        f"{ens['holdout_agreement_single']:.4f} -> {ens['holdout_agreement_ensemble']:.4f}")
+
+    # T-serve -----------------------------------------------------------------
+    with open(f"{tmp}/t_hold_holdout_meta.json") as f:
+        held = json.load(f)["holdout_idx"]
+    q = student.encode([texts[i] for i in held])
+    engine = QueryEngine(DenseIndex.from_reference_pickle(pk), None, device=dev)
+    zero_counts()
+    res = engine.query_batch(q, top_k=TOP_K)
+    rec.launches["T-serve"] = read_counts()
+    launched = {k: v for k, v in rec.launches["T-serve"].items() if v}
+    if launched != {"float_tile_topk": 1}:
+        raise AssertionError(f"T-serve: launches {launched}, not one B4")
+    qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    sims = qn @ gold.T
+    want = np.argsort(-sims, axis=1, kind="stable")[:, :TOP_K]
+    srt = -np.sort(-sims, axis=1)
+    clear = srt[:, TOP_K - 1] - srt[:, TOP_K] > 1e-5  # no tie at the boundary
+    same = [set(res.top_indices[i]) == set(want[i]) for i in range(len(q)) if clear[i]]
+    log(f"[T-serve] {len(q)} held-out embeddings through query_batch over the {n}-row "
+        f"golden bank: launches {launched}; index sets equal the trainer's numpy top-10 on "
+        f"{sum(same)} of {len(same)} rows without a tie at the boundary")
+    if not all(same):
+        raise AssertionError("T-serve: index sets differ from the numpy top-10")
+    del engine, student
+
+    # T-parity ----------------------------------------------------------------
+    pp = T_PARITY
+    small = write_golden_pairs(f"{tmp}/t_small.pkl", texts[:pp["rows"]], gold[:pp["rows"]])
+    argv = ["--pickle", small, "--steps", str(pp["steps"]), "--scan-chunk", "1",
+            "--batch", str(pp["batch"]), "--max-len", str(pp["max_len"])]
+    on_card = dm.main(argv + ["--out", f"{tmp}/t_par_card"])
+    on_cpu = dm.main(argv + ["--out", f"{tmp}/t_par_cpu", "--device", "cpu"])
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(on_card["reports"], on_cpu["reports"]))
+    emb_diff = float(np.abs(on_card["embedder"].encode(texts[:pp["rows"]])
+                            - on_cpu["embedder"].encode(texts[:pp["rows"]])).max())
+    log(f"[T-parity] {pp['steps']} steps at batch {pp['batch']}, max_len {pp['max_len']} "
+        f"from the same initial weights: losses card "
+        f"{[round(r['loss'], 7) for r in on_card['reports']]} vs CPU "
+        f"{[round(r['loss'], 7) for r in on_cpu['reports']]} (max relative diff "
+        f"{loss_rel:.3g}, gate {T_PARITY_LOSS_RTOL}); output embeddings max |diff| "
+        f"{emb_diff:.3g} (gate {T_PARITY_EMB_TOL})")
+    if not (loss_rel <= T_PARITY_LOSS_RTOL and emb_diff <= T_PARITY_EMB_TOL):
+        raise AssertionError("T-parity: card and CPU trainers differ")
+    log(f"[T] path T in {time.time() - t_path:.1f} s")
+
+
 #: label -> (engine options, recall gate): path P1's modes.  The int8
 #: mode rescores from bf16 rows, which cannot order f32 near-ties (D3's gate).
 P1_MODES = {
@@ -3468,7 +3737,9 @@ def main() -> int:
         path_b_scale(dev, card, rec, tmp)
         log(f"[B] paths B, G and B at scale in {time.time() - t0:.1f} s")
         path_ex(tmp)
-    free("B")
+        free("B")
+        path_t(dev, card, rec, tmp)
+    free("T")
 
     # 4-7. the paths over one 1M-row index --------------------------------------
     t0 = time.time()

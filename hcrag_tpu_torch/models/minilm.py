@@ -25,8 +25,12 @@ full float32: the forward refuses TF32 (`check_exact_matmul`).
 `.npz` (flattened "/"-joined names, `params/TransformerLayer_0/...`), so a
 file written by either package loads in the other: `flax_to_state` and
 `state_to_flax` map a DenseGeneral kernel [384, 12, 32] to a Linear weight
-[384, 384] and back.  Without loaded weights the encoder's random weights
-come from `seed` through PyTorch's generator, not Flax's.
+[384, 384] and back.  Without loaded weights the encoder initializes as the
+Flax module does, in distribution (the draws come from a `torch.Generator`
+seeded with `seed`, not from Flax's): embeddings normal with standard
+deviation 1/sqrt(hidden), every kernel LeCun normal (a normal truncated at
+two standard deviations, scaled to variance 1/fan_in), biases zero,
+LayerNorm scales one.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from torch import nn
 
 from hcrag_tpu_torch.device import resolve_device
+from hcrag_tpu_torch.models.flax_init import lecun_normal_
 from hcrag_tpu_torch.ops.quantize import check_exact_matmul
 
 
@@ -113,17 +118,29 @@ class TransformerLayer(nn.Module):
 
 class MiniLMEncoder(nn.Module):
     """Token ids and attention mask -> L2-normalized mean-pooled sentence
-    embeddings [B, H]."""
+    embeddings [B, H].  The weights initialize as Flax's `MiniLMEncoder`
+    does, drawn from `generator` (the default generator without one)."""
 
-    def __init__(self, cfg: MiniLMConfig):
+    def __init__(self, cfg: MiniLMConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.tok = nn.Embedding(cfg.vocab_size, h)
-        self.pos = nn.Embedding(cfg.max_position, h)
-        self.seg = nn.Embedding(2, h)
-        self.norm = LayerNorm(h, cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
+        with torch.device("meta"):  # no draws from the default generator
+            self.tok = nn.Embedding(cfg.vocab_size, h)
+            self.pos = nn.Embedding(cfg.max_position, h)
+            self.seg = nn.Embedding(2, h)
+            self.norm = LayerNorm(h, cfg.layer_norm_eps)
+            self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
+        self.to_empty(device="cpu")
+        with torch.no_grad():
+            for module in self.modules():
+                if isinstance(module, nn.Embedding):  # flax: normal, variance 1/features
+                    nn.init.normal_(module.weight, 0.0, h ** -0.5, generator=generator)
+                elif isinstance(module, nn.Linear):
+                    lecun_normal_(module, generator)
+                elif isinstance(module, LayerNorm):
+                    module.scale.fill_(1.0)
+                    module.bias.zero_()
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         check_exact_matmul()
@@ -185,9 +202,15 @@ def flax_to_state(flat: Dict[str, np.ndarray], cfg: MiniLMConfig) -> Dict[str, t
 def state_to_flax(model: MiniLMEncoder) -> Dict[str, np.ndarray]:
     """The Flax tree's flattened arrays ("params/..." names) of the
     module's weights: the inverse of `flax_to_state`."""
-    cfg = model.cfg
+    return flax_from_state(model.state_dict(), model.cfg)
+
+
+def flax_from_state(state: Dict[str, torch.Tensor], cfg: MiniLMConfig) -> Dict[str, np.ndarray]:
+    """The Flax tree's flattened arrays of tensors named as the module's
+    state (the weights, or anything shaped as they are: an optimizer's
+    moments)."""
     h, heads = cfg.hidden_size, cfg.num_heads
-    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
     flat = {
         "Embed_0/embedding": sd["tok.weight"],
         "Embed_1/embedding": sd["pos.weight"],
@@ -365,9 +388,7 @@ class MiniLMEmbedder:
         self.dim = self.cfg.hidden_size
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or SimpleTokenizer(self.cfg.vocab_size, max_len=max_len)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = MiniLMEncoder(self.cfg)
+        model = MiniLMEncoder(self.cfg, generator=torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
 
     def load_params(self, npz_path: str) -> None:

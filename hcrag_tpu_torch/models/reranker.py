@@ -24,7 +24,6 @@ the other.  The feature stack (`engine_candidate_features`) and
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -40,15 +39,10 @@ from hcrag_tpu_torch.convert import (
 )
 from hcrag_tpu_torch.core.types import PRIORITY_MATRIX
 from hcrag_tpu_torch.device import resolve_device
+from hcrag_tpu_torch.models.flax_init import lecun_normal_
+from hcrag_tpu_torch.utils.train_checkpoint import adamw_state, optax_adamw, set_adamw_state
 
 NUM_FEATURES = 5  # sem, llm, ent, typ, raw cosine
-#: Flax's truncated normal keeps [-2, 2]; this is that truncation's
-#: standard deviation, which `lecun_normal` divides out.
-_TRUNC_STD = 0.87962566103423978
-#: optax.adamw's defaults besides the learning rate.
-ADAM_BETAS = (0.9, 0.999)
-ADAM_EPS = 1e-8
-WEIGHT_DECAY = 1e-4
 
 
 class RerankerMLP(nn.Module):
@@ -60,12 +54,8 @@ class RerankerMLP(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(widths[i], widths[i + 1]) for i in range(RERANKER_LAYERS)
         )
-        with torch.no_grad():
-            for layer in self.layers:
-                std = math.sqrt(1.0 / layer.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(layer.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                layer.weight.mul_(std)
-                layer.bias.zero_()
+        for layer in self.layers:
+            lecun_normal_(layer, generator)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.layers[0](feats))
@@ -92,10 +82,7 @@ class Reranker:
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.model = RerankerMLP(hidden, generator=gen).to(self.device)
-        self.optimizer = torch.optim.AdamW(
-            self.model.parameters(), lr=learning_rate, betas=ADAM_BETAS,
-            eps=ADAM_EPS, weight_decay=WEIGHT_DECAY,
-        )
+        self.optimizer = optax_adamw(self.model.parameters(), learning_rate)
 
     def train_state(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """(parameter leaves, optimizer-state leaves) as the JAX package
@@ -103,15 +90,8 @@ class Reranker:
         count (int32), its 6 first moments and its 6 second moments.  Before
         the first step the count is 0 and the moments zero."""
         params = reranker_leaves(self.model.state_dict())
-        named = list(self.model.named_parameters())
-        states = [self.optimizer.state.get(p, {}) for _, p in named]
-        if not states[0]:
-            return params, [np.asarray(0, np.int32)] + [np.zeros_like(a) for a in params] * 2
-        moments = [
-            reranker_leaves({name: st[key] for (name, _), st in zip(named, states)})
-            for key in ("exp_avg", "exp_avg_sq")
-        ]
-        return params, [np.asarray(int(states[0]["step"]), np.int32)] + moments[0] + moments[1]
+        count, mu, nu = adamw_state(self.model, self.optimizer)
+        return params, [np.asarray(count, np.int32)] + reranker_leaves(mu) + reranker_leaves(nu)
 
     def load_train_state(self, params: List[np.ndarray], opt_state: List[np.ndarray]) -> None:
         """Set the parameters and the optimizer state from leaves in the
@@ -120,15 +100,9 @@ class Reranker:
         n = len(params)
         self.model.load_state_dict(
             {k: v.to(self.device) for k, v in reranker_state_from_leaves(params).items()})
-        mu = reranker_state_from_leaves(opt_state[1:1 + n])
-        nu = reranker_state_from_leaves(opt_state[1 + n:])
-        step = float(int(opt_state[0]))
-        for name, p in self.model.named_parameters():
-            self.optimizer.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32),
-                "exp_avg": mu[name].to(self.device),
-                "exp_avg_sq": nu[name].to(self.device),
-            }
+        set_adamw_state(self.model, self.optimizer, int(opt_state[0]),
+                        reranker_state_from_leaves(opt_state[1:1 + n]),
+                        reranker_state_from_leaves(opt_state[1 + n:]))
 
     def flax_params(self) -> dict:
         """The parameters as the JAX package's Flax tree."""

@@ -40,7 +40,7 @@ that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -573,3 +573,40 @@ def write_adventureworks_corpus(root, *, seed: int = 0, rows: dict = REFERENCE_R
             }
             (docs / f"{name} Table {t + 1}.json").write_text(json.dumps(table, indent=1))
     return root
+
+
+def write_golden_pairs(path, texts: Sequence[str], vectors: np.ndarray,
+                       metadata: Optional[Sequence[dict]] = None) -> str:
+    """A pickle of (text, vector) pairs in the reference layout
+    ({embeddings, metadata, texts, generation_info}): the golden set that
+    `tools.distill_minilm` distils onto."""
+    import pickle
+
+    if metadata is None:
+        metadata = [{"row": i} for i in range(len(texts))]
+    with open(path, "wb") as f:
+        pickle.dump({"embeddings": np.asarray(vectors, np.float32), "texts": list(texts),
+                     "metadata": list(metadata),
+                     "generation_info": {"total_entries": len(texts)}}, f)
+    return str(path)
+
+
+def write_golden_set(root, *, device=None, seed: int = 0) -> str:
+    """The distillation's golden set over the seeded corpus: the corpus at
+    the reference row counts under `root` (`write_adventureworks_corpus`),
+    its texts (`process_corpus`, 589 rows), each paired with the committed
+    distilled encoder's vector (the teacher: the same architecture, so the
+    targets can be reached; on `device`, CUDA unless named), pickled at
+    `root/pairs.pkl`.  Returns the pickle's path."""
+    import os
+
+    from hcrag_tpu_torch.ingest.adventureworks import process_corpus
+    from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+
+    texts, metadata = process_corpus(
+        write_adventureworks_corpus(os.path.join(root, "corpus"), seed=seed))
+    teacher = load_distilled_embedder(device=device)
+    if teacher is None:
+        raise FileNotFoundError("the committed distilled encoder (tools/minilm_distilled*)")
+    return write_golden_pairs(os.path.join(root, "pairs.pkl"), texts,
+                              teacher.encode(texts), metadata)

@@ -8,7 +8,10 @@ once) over the memory rate, and the operations it does over the card's peak
 rate for their type (published H100 SXM dense peaks, 700 W).  The table
 gives every kernel of the JAX package (B1-B8) at the shapes its path runs
 (or, for the kernels still to port, would run); `chip_smoke.py` computes the
-ported kernels' bounds from its own run's tensors with `bound_ms`.
+ported kernels' bounds from its own run's tensors with `bound_ms`.  The
+printout's last row is no kernel: the MiniLM distillation's train step
+(path T), plain float32 products in PyTorch, bounded by
+`minilm_train_work` (`train_row`).
 """
 
 from __future__ import annotations
@@ -67,6 +70,31 @@ def merge_work(b: int, pool: int, out_k: int) -> Dict:
     return dict(ops=0.0, kind="int8", bytes=4 * b * pool + 32 * b * out_k + 8 * b * out_k)
 
 
+def minilm_train_work(batch: int, seq: int, hidden: int = 384, layers: int = 6,
+                      heads: int = 12, ffn: int = 1536) -> Dict:
+    """One AdamW step of the MiniLM distillation on batch x seq tokens
+    (padded; the products run over every padded position).
+
+    Operations (f32 on the CUDA cores: TF32 is refused): the forward's
+    products, 2 x the layers' matmul weights (4 h^2 + 2 h ffn a layer) per
+    token, plus attention's two products, 4 b s^2 h a layer; the backward
+    takes twice the forward.  Bytes: the activations the backward reads,
+    each written once by the forward and read once by the backward (a layer
+    keeps per token its input, q, k, v, the attention output and its
+    projection, both LayerNorms' outputs, h each, the FFN's input and GELU
+    output, ffn each, and each head's softmax row, heads x s), plus the
+    weights read twice, their gradients written and AdamW's read-modify-
+    write of weights and two moments."""
+    tokens = batch * seq
+    weights = layers * (4 * hidden * hidden + 2 * hidden * ffn)
+    forward = 2.0 * weights * tokens + layers * 4.0 * batch * seq * seq * hidden
+    per_token = 8 * hidden + 2 * ffn + heads * seq
+    activations = 4.0 * layers * tokens * per_token
+    optimizer = 4.0 * weights * (2 + 1 + 3 * 2)
+    return dict(ops=3.0 * forward, kind="f32", bytes=2 * activations + optimizer,
+                tokens=tokens)
+
+
 def table() -> List[Dict]:
     """One row per kernel and path: id, name, path and shapes, ops, bytes,
     bound.  A kernel's main path comes last among its rows."""
@@ -119,15 +147,22 @@ def table() -> List[Dict]:
          dict(ops=2.0 * 512 * N_PAD * D, kind="bf16",
               bytes=2 * 512 * D + 2 * N_PAD * D + 4 * 512 * 256)),
     ]
-    out = []
-    for kid, name, path, work in rows:
-        ms, by = bound_ms(work["ops"], work["kind"], work["bytes"])
-        out.append(dict(id=kid, kernel=name, path=path, ops=work["ops"],
-                        ops_type=work["kind"], bytes=work["bytes"],
-                        bound_ms=ms, bound_by=by))
-    return out
+    return [_row(*r) for r in rows]
+
+
+def _row(kid: str, name: str, path: str, work: Dict) -> Dict:
+    ms, by = bound_ms(work["ops"], work["kind"], work["bytes"])
+    return dict(id=kid, kernel=name, path=path, ops=work["ops"], ops_type=work["kind"],
+                bytes=work["bytes"], bound_ms=ms, bound_by=by)
+
+
+def train_row() -> Dict:
+    """Path T's MiniLM train step (no kernel) in the table's row format."""
+    return _row("T", "MiniLM distillation train step (plain torch, no kernel)",
+                "path T: B=128, max_len 192, 6 x 384 wide, FFN 1536",
+                minilm_train_work(128, 192))
 
 
 if __name__ == "__main__":
-    for row in table():
+    for row in table() + [train_row()]:
         print(json.dumps(row))

@@ -9,15 +9,18 @@ caller hands the leaves over as lists in that order (`Reranker` maps its
 modules and AdamW state onto them).  Restoring checks the leaf count and
 every leaf's shape against templates of the model and optimizer as they
 are now, so an architecture or optimizer change raises instead of
-restoring into the wrong slots.
+restoring into the wrong slots.  `optax_adamw` builds a torch AdamW with
+optax.adamw's settings; `adamw_state` / `set_adamw_state` read and set its
+state as optax keeps it: one count, and the moments by parameter name.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def _npz_path(path) -> Path:
@@ -71,3 +74,37 @@ def restore_train_state(
                 restored.append(arr.astype(want.dtype))
             out.append(restored)
     return out[0], out[1], step
+
+
+def optax_adamw(params, lr: float, weight_decay: float = 1e-4) -> torch.optim.AdamW:
+    """torch's AdamW with optax.adamw's b1, b2 and eps, over every
+    parameter (optax's mask is None, so biases and LayerNorms decay too)."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def adamw_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer
+                ) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(Adam's count, first moments, second moments) of `optimizer` over
+    `model`'s parameters, the moments keyed by parameter name; before the
+    first step the count is 0 and the moments zero."""
+    named = dict(model.named_parameters())
+    states = [optimizer.state.get(p, {}) for p in named.values()]
+    if not states[0]:
+        zeros = {name: torch.zeros_like(p) for name, p in named.items()}
+        return 0, zeros, zeros
+    return (int(states[0]["step"]),
+            {name: st["exp_avg"] for name, st in zip(named, states)},
+            {name: st["exp_avg_sq"] for name, st in zip(named, states)})
+
+
+def set_adamw_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, count: int,
+                    exp_avg: Dict[str, torch.Tensor], exp_avg_sq: Dict[str, torch.Tensor]) -> None:
+    """Set AdamW's state over `model`'s parameters: torch's per-parameter
+    step from optax's one count, the moments by parameter name."""
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg[name].to(p.device),
+            "exp_avg_sq": exp_avg_sq[name].to(p.device),
+        }

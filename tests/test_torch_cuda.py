@@ -1142,3 +1142,67 @@ def test_executor_over_two_gloo_ranks_on_one_card_equals_unsharded(cuda):
     for mode in W.CARD_MODES:
         assert ranks[1][mode][1:] == ranks[0][mode][1:]
     _served_against_unsharded({m: ranks[0][m][0] for m in W.CARD_MODES}, cuda)
+
+
+def _card_golden_set(tmp_path, n, device):
+    """n texts of the seeded corpus with the committed encoder's vectors."""
+    from hcrag_tpu_torch.ingest.adventureworks import process_corpus
+    from hcrag_tpu_torch.models.minilm import load_distilled_embedder
+    from hcrag_tpu_torch.testing import write_adventureworks_corpus, write_golden_pairs
+
+    texts, _ = process_corpus(write_adventureworks_corpus(tmp_path / "aw", seed=0))
+    texts = [texts[i] for i in np.random.default_rng(3).choice(len(texts), n, replace=False)]
+    teacher = load_distilled_embedder(device=device)
+    return write_golden_pairs(tmp_path / "pairs.pkl", texts, teacher.encode(texts)), texts
+
+
+def test_distill_trainer_on_card_equals_cpu(cuda, tmp_path):
+    """`distill_minilm.main` for 3 steps (batch 8, max_len 32, a report a
+    step) on the card and on the CPU from the same seeded weights: losses
+    within 1e-5 (relative), output embeddings within 1e-4."""
+    from hcrag_tpu_torch.tools import distill_minilm as dm
+
+    pk, texts = _card_golden_set(tmp_path, 48, cuda)
+    argv = ["--pickle", pk, "--steps", "3", "--scan-chunk", "1", "--batch", "8",
+            "--max-len", "32"]
+    card = dm.main(argv + ["--out", str(tmp_path / "card")])
+    host = dm.main(argv + ["--out", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert card["embedder"].device.type == "cuda"
+    assert [r["step"] for r in card["reports"]] == [1, 2, 3]
+    for a, b in zip(card["reports"], host["reports"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+    got, want = card["embedder"].encode(texts), host["embedder"].encode(texts)
+    assert np.isfinite(got).all() and float(np.abs(got - want).max()) <= 1e-4
+
+
+def test_distill_resume_on_card(cuda, tmp_path, monkeypatch):
+    """A run stopped after its step-2 checkpoint and resumed to step 4 on
+    the card ends where the uninterrupted run does: output embeddings
+    within 1e-4 (chip_smoke.py's T-resume gate), and it prints whether the
+    parameters are bit-equal."""
+    from hcrag_tpu_torch.tools import distill_minilm as dm
+
+    pk, texts = _card_golden_set(tmp_path, 48, cuda)
+    argv = ["--pickle", pk, "--steps", "4", "--scan-chunk", "2", "--batch", "8",
+            "--max-len", "32"]
+    full = dm.main(argv + ["--out", str(tmp_path / "full")])
+    real = dm.save_train_state
+
+    class Stop(Exception):
+        pass
+
+    def save_then_stop(path, params, opt_state, step):
+        real(path, params, opt_state, step)
+        raise Stop
+
+    ck = str(tmp_path / "ckpt.npz")
+    monkeypatch.setattr(dm, "save_train_state", save_then_stop)
+    with pytest.raises(Stop):
+        dm.main(argv + ["--out", str(tmp_path / "part"), "--resume", ck])
+    monkeypatch.setattr(dm, "save_train_state", real)
+    resumed = dm.main(argv + ["--out", str(tmp_path / "resumed"), "--resume", ck])
+    assert [r["step"] for r in resumed["reports"]] == [4]
+    diff = float(np.abs(resumed["embedder"].encode(texts) - full["embedder"].encode(texts)).max())
+    assert diff <= 1e-4
+    with np.load(tmp_path / "full.npz") as a, np.load(tmp_path / "resumed.npz") as b:
+        print("bit-equal parameters:", all(np.array_equal(a[k], b[k]) for k in a.files))
