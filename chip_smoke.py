@@ -227,6 +227,29 @@ last line:
                k-pass packed branch, and B2; its gate queries' top-10 must
                equal the plain route's.
 
+Path BM runs the root benchmark scripts of the port
+(`hcrag_tpu_torch/benchmarks/`), each through its `run()` on the card at
+the JAX script's size, every launch counter at 0 just before and read just
+after, with the script's own checks, then every kernel it launches at its
+shapes against its plain version (B1, B2, B3e bit for bit; B4, B5 by the
+rules of `testing.py`; B6 within 1e-5), timed beside its bound: over the
+1M rows, right after paths L1/L2, `ablation` (the bf16 rows, B=1024: the
+dots, the streaming selection, B4, the step at max_expanded 20 and 1; B4
+must agree with the streaming selection) and `expansion_heavy` (path X's
+graph and engine: the step, retrieval, expansion, dedup); after path R,
+`hbm_bandwidth` (read and copy rates), `dispatch_floor` (B5 at 2^17-2^20
+rows, B2 at 2^20, the fit a + dN on both clocks), `merge_micro` (B2,
+`torch.topk`, argmax32 over [512, 4890]; B2's sets against torch.topk's
+within one key quantum), `scoring_ablation` (B6 against the plain route
+at 128, 1,024 and 8,192 nodes), `twolevel_ablation` (B1 + B2, B4, B5 + B2,
+B3e over 1M rows, B=512; the f32 top-10 inside the int8 merge-32 gated at
+0.998), `reranker_eval` (the seeded corpus, NDCG@10), `sharded_traffic`
+(2 and 4 gloo ranks on the card: bytes per collective equal to the model,
+every rank's top-10 equal to the f32 brute force; B4 in the ranks) and
+`sharded_10m` cut to 1,048,576 rows over 2 ranks, both modes (recall@10
+gated at 0.998, self-retrieval, the per-rank memory; B5 and B1 in the
+ranks, whose launches the script returns).
+
 Between the 1M-row paths and path R, path K runs the kernel sweep
 (`hcrag_tpu_torch.benchmarks.kernel_sweep`) over its own bank, the JAX
 sweep's data (1,001,472 x 384 bf16 rows, B=512): kernels B8a-c
@@ -298,6 +321,8 @@ RR_QUERIES, RR_TOP_M, RR_EPOCHS, RR_BATCH = 512, 20, 30, 32
 A_SEED, A_SMALL_ROWS = 42, 20_000  # the agents' sampling seed; the card-vs-CPU engine
 P2_ROWS, P2_BATCH, P2_REPS = 262_144, 1024, 2  # path P2: ranks sharing the one card
 P2_WORLDS = (2, 4)
+BM_SHARDS = (2, 4)  # path BM: sharded_traffic's ranks
+BM_10M_ROWS, BM_10M_RANKS = 1_048_576, 2  # path BM: sharded_10m cut to one 1M bank
 EXAMPLES = ("end_to_end", "configurable_weights", "path_extraction")  # path EX
 
 
@@ -1191,6 +1216,30 @@ def merge_at_path(vals, idxs, out_k, label, card, rec) -> None:
     rec.kernel("packed_candidate_merge", label, ms, plain_ms, bound, lib_ms)
 
 
+def b1_at(q8, qs, e8, es, mask, k, label, card, rec, reps=3):
+    """B1 on these operands against its plain version (bit for bit), then
+    its time beside the plain version's and its bound; returns its
+    candidates."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+
+    vals, idxs = tc.int8_tile_topk(q8, qs, e8, es, mask, k)
+    rec.err("int8_tile_topk",
+            same_bits(vals, idxs, *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k)))
+    (b, d), n_bank, tiles = q8.shape, e8.shape[0], vals.shape[1]
+    log(f"[{label}] B1 at the path's shapes: bit-equal to its plain version")
+    b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, k), reps=reps)
+    b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1,
+                          warmup=0)  # the bit check above warmed it
+    b1_bytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel()
+                + mask.numel() + 8 * vals.numel())
+    b1_bound = bound_ms(2.0 * b * n_bank * d, "int8", b1_bytes)
+    log(f"[{label}] B1 int8_tile_topk B={b} N={n_bank} tiles={tiles} k={k}: "
+        f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
+        f"by {b1_bound[1]}; {card})")
+    rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
+    return vals, idxs
+
+
 def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
                          with_merge=True):
     """B1 and B2 at the path's shapes against their plain versions (bit for
@@ -1201,25 +1250,11 @@ def int8_kernels_at_path(engine, dq, label, card, rec, merge_out_k, b1_reps=3,
 
     bank = engine._bank()
     e8, es = bank["emb_int8"], bank["emb_scale"]
-    n_bank, b = e8.shape[0], dq.shape[0]
-    mask = path_mask(n_bank, engine._n_rows, dq.device)
+    mask = path_mask(e8.shape[0], engine._n_rows, dq.device)
     q8, qs = quantize_queries(dq)
-    k = tc.tile_pick_count(TOP_K, n_bank, 2048, merge_out_k)
-    vals, idxs = tc.int8_tile_topk(q8, qs, e8, es, mask, k)
-    rec.err("int8_tile_topk",
-            same_bits(vals, idxs, *tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k)))
+    k = tc.tile_pick_count(TOP_K, e8.shape[0], 2048, merge_out_k)
+    vals, idxs = b1_at(q8, qs, e8, es, mask, k, label, card, rec, reps=b1_reps)
     tiles = vals.shape[1]
-    log(f"[{label}] B1 at the path's shapes: bit-equal to its plain version")
-    b1_ms = cuda_ms(lambda: tc.int8_tile_topk(q8, qs, e8, es, mask, k), reps=b1_reps)
-    b1_plain_ms = cuda_ms(lambda: tc.int8_tile_topk_plain(q8, qs, e8, es, mask, k), reps=1,
-                          warmup=0)  # the bit check above warmed it
-    b1_bytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel()
-                + mask.numel() + 8 * vals.numel())
-    b1_bound = bound_ms(2.0 * b * n_bank * DIM, "int8", b1_bytes)
-    log(f"[{label}] B1 int8_tile_topk B={b} N={n_bank} tiles={tiles} k={k}: "
-        f"{b1_ms:.3f} ms (plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.3f} ms "
-        f"by {b1_bound[1]}; {card})")
-    rec.kernel("int8_tile_topk", label, b1_ms, b1_plain_ms, b1_bound)
     if with_merge:
         merge_at_path(vals, idxs, min(max(k, merge_out_k), tiles * k), label, card, rec)
 
@@ -1497,19 +1532,14 @@ def path_f2(index, graph, queries, ref, dev, card, rec) -> None:
     merge_at_path(kv, ki, RESCORE, "F2", card, rec)
 
 
-def b5_at_path(engine, dq, label, card, rec):
-    """B5 at the path's shapes (the engine's bf16 bank, queries `dq`, the
-    rescore's merge_k) against its plain version by `testing.py`'s rule,
-    then its time beside the plain version's and its bound; returns its
-    candidates."""
+def b5_at(qb, e, mask, k, label, card, rec, reps=2):
+    """B5 on these operands (bf16 queries and bank) against its plain
+    version by `testing.py`'s rule, then its time beside the plain
+    version's and its bound; returns its candidates."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.testing import check_packed_topk
 
-    e = engine.d_emb
-    n_bank, b = e.shape[0], dq.shape[0]
-    mask = path_mask(n_bank, engine._n_rows, dq.device)
-    qb = dq.to(torch.bfloat16)
-    k = tc.tile_pick_count(TOP_K, n_bank, 2048, RESCORE)
+    (b, d), n_bank = qb.shape, e.shape[0]
     kv, ki = tc.float_packed_tile_topk(qb, e, mask, k)
     pv, pi = tc.float_packed_tile_topk_plain(qb, e, mask, k)
     err, moved = check_packed_topk(kv, ki, pv, pi, qb, e)
@@ -1518,17 +1548,28 @@ def b5_at_path(engine, dq, label, card, rec):
         f"(max |err| {err:.3g}, {moved} of {kv.shape[0] * kv.shape[1]} tiles next to "
         f"a key-quantum boundary)")
     del pv, pi
-    b5_ms = cuda_ms(lambda: tc.float_packed_tile_topk(qb, e, mask, k), reps=2)
+    b5_ms = cuda_ms(lambda: tc.float_packed_tile_topk(qb, e, mask, k), reps=reps)
     b5_plain_ms = cuda_ms(lambda: tc.float_packed_tile_topk_plain(qb, e, mask, k),
                           reps=1, warmup=0)
-    tiles = -(-n_bank // 2048)
-    b5_bytes = 2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * b * tiles * k
-    b5_bound = bound_ms(2.0 * b * n_bank * DIM, "bf16", b5_bytes)
-    log(f"[{label}] B5 float_packed_tile_topk B={b} N={n_bank} tiles={tiles} bf16: "
+    tiles = kv.shape[1]
+    b5_bytes = 2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * kv.numel()
+    b5_bound = bound_ms(2.0 * b * n_bank * d, "bf16", b5_bytes)
+    log(f"[{label}] B5 float_packed_tile_topk B={b} N={n_bank} tiles={tiles} k={k} bf16: "
         f"{b5_ms:.3f} ms (plain {b5_plain_ms:.3f} ms, bound {b5_bound[0]:.3f} ms by "
         f"{b5_bound[1]}; {card})")
     rec.kernel("float_packed_tile_topk", label, b5_ms, b5_plain_ms, b5_bound)
     return kv, ki
+
+
+def b5_at_path(engine, dq, label, card, rec):
+    """B5 at the path's shapes (the engine's bf16 bank, queries `dq`, the
+    rescore's merge_k; `b5_at`); returns its candidates."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+
+    e = engine.d_emb
+    mask = path_mask(e.shape[0], engine._n_rows, dq.device)
+    k = tc.tile_pick_count(TOP_K, e.shape[0], 2048, RESCORE)
+    return b5_at(dq.to(torch.bfloat16), e, mask, k, label, card, rec)
 
 
 SUPER_PATHS = {  # label -> (engine options, B7 kernel, supertile factor run)
@@ -1611,16 +1652,16 @@ def super_at_path(engine, dq, kernel, label, card, rec):
     return vals, idxs, k_sub
 
 
-def path_x(index, queries, dev, card, rec) -> None:
+def path_x(index, queries, dev, card, rec):
     """The expansion-heavy deployment: top_k=100, depth 3, B=256 over the
     1M rows with a degree-8 graph, `exact_rescore=32` (B5 at per-tile k =
     100, B2 over 489 x 100 -> 100); then the breakdown that the JAX repo's
     `benchmarks/expansion_heavy.py` records, each part held against the CPU
-    on a few rows, and B5 and B2 at the path's shapes."""
+    on a few rows, and B5 and B2 at the path's shapes.  Returns the graph
+    (path BM's expansion script runs over it)."""
     from hcrag_tpu_torch.ops import expand as ex
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.query.engine import QueryEngine
-    from hcrag_tpu_torch.testing import check_packed_topk
     from hcrag_tpu_torch.utils.synthetic import synthetic_graph
 
     t0 = time.time()
@@ -1680,26 +1721,11 @@ def path_x(index, queries, dev, card, rec) -> None:
     del cpu
 
     e = engine.d_emb
-    n_bank = e.shape[0]
-    mask = path_mask(n_bank, N_ROWS, dev)
-    qb = dq.to(torch.bfloat16)
-    k = tc.tile_pick_count(X_TOP_K, n_bank, 2048, 0)
-    kv, ki = tc.float_packed_tile_topk(qb, e, mask, k)
-    pv, pi = tc.float_packed_tile_topk_plain(qb, e, mask, k)
-    err, moved = check_packed_topk(kv, ki, pv, pi, qb, e)
-    rec.err("float_packed_tile_topk", err)
-    del pv, pi
-    ms = cuda_ms(lambda: tc.float_packed_tile_topk(qb, e, mask, k), reps=3)
-    plain_ms = cuda_ms(lambda: tc.float_packed_tile_topk_plain(qb, e, mask, k), reps=1)
-    tiles = kv.shape[1]
-    bound = bound_ms(2.0 * X_BATCH * n_bank * DIM, "bf16",
-                     2 * qb.numel() + 2 * e.numel() + mask.numel() + 8 * kv.numel())
-    log(f"[X] B5 float_packed_tile_topk B={X_BATCH} N={n_bank} tiles={tiles} k={k}: agrees "
-        f"with its plain version (max |err| {err:.3g}, {moved} tiles next to a key-quantum "
-        f"boundary); {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms by "
-        f"{bound[1]}; {card})")
-    rec.kernel("float_packed_tile_topk", "X", ms, plain_ms, bound)
+    k = tc.tile_pick_count(X_TOP_K, e.shape[0], 2048, 0)
+    kv, ki = b5_at(dq.to(torch.bfloat16), e, path_mask(e.shape[0], N_ROWS, dev), k, "X",
+                   card, rec, reps=3)
     merge_at_path(kv, ki, X_TOP_K, "X", card, rec)
+    return graph
 
 
 SELECTION_KERNELS = ("int8_tile_topk", "int8_exact_tile_topk", "int8_super_tile_topk",
@@ -1807,39 +1833,48 @@ def path_f1(index, graph, ref, dev, card, rec) -> None:
     return engine
 
 
-def b4_at_path(engine, dq, label, card, rec, category_filter=None) -> None:
-    """B4 at the path's shapes (the engine's f32 bank, queries `dq`, the
-    mask of `category_filter` where one is given) against its plain version
-    by `testing.check_exact_topk`, then its time beside the plain version's,
-    its bound and the dots alone."""
+def b4_at(q, e, mask, label, card, rec, k=TOP_K, reps=3) -> None:
+    """B4 on these operands (f32, or bf16 queries and bank) against its
+    plain version by `testing.check_exact_topk`, then its time beside the
+    plain version's, its bound and the dots alone."""
     from hcrag_tpu_torch.ops import topk_cuda as tc
     from hcrag_tpu_torch.testing import check_exact_topk
 
-    e = engine.d_emb
-    n_bank, b = e.shape[0], dq.shape[0]
-    mask = path_mask(n_bank, engine._n_rows, dq.device)
-    if category_filter:
-        mask[:engine._n_rows] = engine._type_mask(category_filter)
-    kv, ki = tc.float_tile_topk(dq, e, mask, TOP_K)
-    pv, pi = tc.float_tile_topk_plain(dq, e, mask, TOP_K)
-    err, moved = check_exact_topk(kv, ki, pv, pi, dq, e, mask)
+    (b, d), n_bank = q.shape, e.shape[0]
+    kv, ki = tc.float_tile_topk(q, e, mask, k)
+    pv, pi = tc.float_tile_topk_plain(q, e, mask, k)
+    err, moved = check_exact_topk(kv, ki, pv, pi, q, e, mask)
     rec.err("float_tile_topk", err)
     log(f"[{label}] B4 at the path's shapes: agrees with its plain version "
         f"(max |err| {err:.3g}, {moved} indices at near-ties)")
-    b4_ms = cuda_ms(lambda: tc.float_tile_topk(dq, e, mask, TOP_K), reps=3)
-    b4_plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(dq, e, mask, TOP_K), reps=1)
-    # The yardstick: the same f32 dots alone, one [B, N] product in full f32
-    # (TF32 is off), not the same function.
-    dots_ms = cuda_ms(lambda: torch.matmul(dq, e.T), reps=3)
-    tiles = -(-n_bank // 2048)
-    b4_bytes = 4 * dq.numel() + 4 * e.numel() + mask.numel() + 8 * b * tiles * TOP_K
-    b4_bound = bound_ms(2.0 * b * n_bank * e.shape[1], "f32", b4_bytes)
-    log(f"[{label}] B4 float_tile_topk B={b} N={n_bank} tiles={tiles} f32: "
+    b4_ms = cuda_ms(lambda: tc.float_tile_topk(q, e, mask, k), reps=reps)
+    b4_plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(q, e, mask, k), reps=1)
+    # The yardstick: the same dots alone, one [B, N] product (in full f32
+    # for an f32 bank: TF32 is off), not the same function.
+    dots_ms = cuda_ms(lambda: torch.matmul(q, e.T), reps=3)
+    tiles = kv.shape[1]
+    nbytes = (q.element_size() * q.numel() + e.element_size() * e.numel() + mask.numel()
+              + 8 * kv.numel())
+    # The peak of the operands' type: bf16 queries and bank take the bf16
+    # rate, though B4 sums them in f32 on the CUDA cores.
+    kind = "bf16" if q.dtype == e.dtype == torch.bfloat16 else "f32"
+    b4_bound = bound_ms(2.0 * b * n_bank * d, kind, nbytes)
+    log(f"[{label}] B4 float_tile_topk B={b} N={n_bank} tiles={tiles} k={k} {e.dtype}: "
         f"{b4_ms:.3f} ms (plain {b4_plain_ms:.3f} ms, bound {b4_bound[0]:.3f} ms by "
-        f"{b4_bound[1]}; dots alone, not the same function: torch.matmul in f32 "
-        f"{dots_ms:.3f} ms; launches on the path {rec.launches[label]['float_tile_topk']}; "
-        f"{card})")
+        f"{b4_bound[1]}; dots alone, not the same function: torch.matmul "
+        f"{dots_ms:.3f} ms; launches on the path "
+        f"{rec.launches.get(label, {}).get('float_tile_topk')}; {card})")
     rec.kernel("float_tile_topk", label, b4_ms, b4_plain_ms, b4_bound, dots_alone_ms=dots_ms)
+
+
+def b4_at_path(engine, dq, label, card, rec, category_filter=None) -> None:
+    """B4 at the path's shapes (the engine's f32 bank, queries `dq`, the
+    mask of `category_filter` where one is given; `b4_at`)."""
+    e = engine.d_emb
+    mask = path_mask(e.shape[0], engine._n_rows, dq.device)
+    if category_filter:
+        mask[:engine._n_rows] = engine._type_mask(category_filter)
+    b4_at(dq, e, mask, label, card, rec)
 
 
 def _agent_questions(graph, seed: int, index):
@@ -2324,7 +2359,7 @@ def b6_at(args, reduction, label, shape, card, rec) -> None:
     work = scoring_work(b, n, q.shape[1], w, llm=args[10] is not None)
     bound = bound_ms(work["ops"], "f32", work["bytes"])
     plan = sc.launch_plan(q, e, w)
-    log(f"[R] B6 batch_relevance {shape} W={w} ({plan.regime}, {plan.queries} queries a "
+    log(f"[{label}] B6 batch_relevance {shape} W={w} ({plan.regime}, {plan.queries} queries a "
         f"block): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
         f"{bound[1]}, {100 * bound[0] / ms:.0f}% of it; dots alone, not the same function: "
         f"{'torch.mv' if b == 1 else 'torch.matmul'} in f32 {dots_ms:.4f} ms; {card})")
@@ -2363,32 +2398,44 @@ def path_d1(index, graph, queries, ref, dev, card, rec) -> None:
     if rec.launches["D1x"]["int8_exact_tile_topk"] < 1:
         raise AssertionError("D1x never launched int8_exact_tile_topk")
     q8, qs = quantize_queries(dq)
-    kv, ki = tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K)
+    b3e_at(q8, qs, e8, es, mask, TOP_K, "D1x", card, rec, dots_chunk=1_000_000)
+
+
+def b3e_at(q8, qs, e8, es, mask, k, label, card, rec, dots_chunk=0) -> None:
+    """B3e on these operands against its plain version (bit for bit), then
+    its time beside the plain version's and its bound; with `dots_chunk`,
+    also the same int8 dots alone as a yardstick."""
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+
+    (b, d), n_bank = q8.shape, e8.shape[0]
+    kv, ki = tc.int8_exact_tile_topk(q8, qs, e8, es, mask, k)
     rec.err("int8_exact_tile_topk",
-            same_bits(kv, ki, *tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K)))
+            same_bits(kv, ki, *tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, k)))
+    tiles = kv.shape[1]
     del kv, ki
-    ms = cuda_ms(lambda: tc.int8_exact_tile_topk(q8, qs, e8, es, mask, TOP_K), reps=2)
-    plain_ms = cuda_ms(lambda: tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, TOP_K),
+    ms = cuda_ms(lambda: tc.int8_exact_tile_topk(q8, qs, e8, es, mask, k), reps=2)
+    plain_ms = cuda_ms(lambda: tc.int8_exact_tile_topk_plain(q8, qs, e8, es, mask, k),
                        reps=1, warmup=0)
-    # The yardstick: the same int8 dots alone, torch._int_mm in 1M-row
-    # chunks (the [B, N] int32 product would not fit), not the same function.
-    chunk = 1_000_000
+    dots_ms, dots = None, ""
+    if dots_chunk:
+        # The yardstick: the same int8 dots alone, torch._int_mm in row
+        # chunks (the [B, N] int32 product would not fit), not the same
+        # function.
+        def int8_dots():  # each chunk's product is dropped before the next
+            for lo in range(0, n_bank, dots_chunk):
+                torch._int_mm(q8, e8[lo:lo + dots_chunk].T)
 
-    def int8_dots():  # each chunk's product is dropped before the next
-        for lo in range(0, n_bank, chunk):
-            torch._int_mm(q8, e8[lo:lo + chunk].T)
-
-    dots_ms = cuda_ms(int8_dots, reps=1)
-    tiles = -(-n_bank // 2048)
+        dots_ms = cuda_ms(int8_dots, reps=1)
+        dots = (f"; dots alone, not the same function: torch._int_mm in {dots_chunk}-row "
+                f"chunks {dots_ms:.3f} ms")
     nbytes = (q8.numel() + 4 * qs.numel() + e8.numel() + 4 * es.numel() + mask.numel()
-              + 8 * D_BATCH * tiles * TOP_K)
-    bound = bound_ms(2.0 * D_BATCH * n_bank * DIM, "int8", nbytes)
-    log(f"[D1x] B3e int8_exact_tile_topk B={D_BATCH} N={n_bank} tiles={tiles}: bit-equal "
-        f"to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{bound[0]:.3f} ms by {bound[1]}; dots alone, not the same function: "
-        f"torch._int_mm in {chunk}-row chunks {dots_ms:.3f} ms; launches on the path "
-        f"{rec.launches['D1x']['int8_exact_tile_topk']}; {card})")
-    rec.kernel("int8_exact_tile_topk", "D1x", ms, plain_ms, bound, dots_alone_ms=dots_ms)
+              + 8 * b * tiles * k)
+    bound = bound_ms(2.0 * b * n_bank * d, "int8", nbytes)
+    log(f"[{label}] B3e int8_exact_tile_topk B={b} N={n_bank} tiles={tiles} k={k}: "
+        f"bit-equal to its plain version; {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms by {bound[1]}{dots}; launches on the path "
+        f"{rec.launches[label]['int8_exact_tile_topk']}; {card})")
+    rec.kernel("int8_exact_tile_topk", label, ms, plain_ms, bound, dots_alone_ms=dots_ms)
 
 
 def path_d2(index, graph, queries, ref, dev, card, rec) -> None:
@@ -2488,7 +2535,8 @@ def path_k(dev, card, rec) -> None:
         rec.kernel(name, "K", res[name], plain_ms, bound, res["library_matmul"])
 
     # B4 alone over the sweep's bf16 bank (f32 sums on the CUDA cores, the
-    # loop that B8a-c split), against its plain version.
+    # loop that B8a-c split; its bound at the bf16 rate of its operands),
+    # against its plain version.
     from hcrag_tpu_torch.testing import check_exact_topk
 
     mask = torch.ones(n, dtype=torch.bool, device=dev)
@@ -2499,7 +2547,7 @@ def path_k(dev, card, rec) -> None:
     del kv, ki
     b4_ms = cuda_ms(lambda: tc.float_tile_topk(qb, e, mask, TOP_K), reps=3)
     plain_ms = cuda_ms(lambda: tc.float_tile_topk_plain(qb, e, mask, TOP_K), reps=1)
-    bound = bound_ms(2.0 * b * n * DIM, "f32", 2 * qb.numel() + 2 * e.numel() + n
+    bound = bound_ms(2.0 * b * n * DIM, "bf16", 2 * qb.numel() + 2 * e.numel() + n
                      + 8 * b * tiles * TOP_K)
     log(f"[K] B4 float_tile_topk B={b} N={n} tiles={tiles} bf16 bank: agrees with its plain "
         f"version (max |err| {err:.3g}, {moved} indices at near-ties); {b4_ms:.3f} ms "
@@ -3649,6 +3697,229 @@ def path_p3(dev, card, rec) -> None:
     log(f"[P3] phase {time.time() - t_phase:.1f} s")
 
 
+def bm_script(label, run, expected, card, rec, counts=None):
+    """One script's `run()` on the card (path BM), every launch counter at 0
+    just before it and read just after (or, for a script whose kernels
+    launch in its ranks, `counts(result)`: rank 0's); every kernel in
+    `expected` must have launched.  Prints the script's JSON line and
+    returns its result."""
+    zero_counts()
+    t0 = time.time()
+    res = run()
+    secs = time.time() - t0
+    launches = read_counts()
+    if counts is not None:
+        launches.update(counts(res))
+    rec.launches[label] = launches
+    for name in expected:
+        if launches[name] < 1:
+            raise AssertionError(f"path {label} never launched {name}")
+    log(f"[{label}] run() in {secs:.1f} s (host clock, set-up included); launches "
+        f"{launches}; {card}")
+    log(f"[{label}] {json.dumps(res)}")
+    return res
+
+
+def unit_rows(n, d, dev, seed, dtype=torch.float32):
+    """[n, d] normalized normal rows drawn on the card (a kernel's operands
+    at a script's shapes)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=dev)
+    return torch.nn.functional.normalize(x, dim=1).to(dtype)
+
+
+def path_bm_engine(index, graph, graph8, dev, card, rec) -> None:
+    """Path BM over the 1M index: the ablation script (the bf16 rows, B4,
+    the step at max_expanded 20 and 1) and the expansion-heavy script (the
+    degree-8 graph of path X), each from its `run()` at the JAX sizes, then
+    their kernels at the scripts' shapes against their plain versions."""
+    from hcrag_tpu_torch.benchmarks import ablation, expansion_heavy
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+
+    x = ablation.setup(dev, index=index, graph=graph)
+    res = bm_script("BM-ablation", lambda: ablation.run(dev, data=x), ("float_tile_topk",),
+                    card, rec)
+    calls = ablation.variants(x)
+    _, fused = calls[ablation.FUSED]()
+    _, streamed = calls[ablation.select_label(N_ROWS)]()
+    agree = recall(streamed.cpu().numpy(), fused.cpu().numpy())
+    log(f"[BM-ablation] B4's top-10 against the streaming selection's: {agree:.5f} "
+        f"(both exact over the bf16 rows; gate {MIN_RECALL}); stages ms "
+        f"{ {k: v for k, v in res.items() if k not in ('device', 'shapes')} }")
+    if agree < MIN_RECALL:
+        raise AssertionError(f"BM-ablation: B4 and the streaming selection agree {agree}")
+    b4_at(x["q"].to(torch.bfloat16), x["e_pad"], x["mask_pad"], "BM-ablation", card, rec)
+    del x, calls
+    free("BM-ablation")
+    x = expansion_heavy.setup(dev, index=index, graph=graph8)
+    bm_script("BM-expansion", lambda: expansion_heavy.run(dev, data=x),
+              ("float_packed_tile_topk", "packed_candidate_merge"), card, rec)
+    e = x["engine"].d_emb
+    k = tc.tile_pick_count(X_TOP_K, e.shape[0], 2048, 0)
+    kv, ki = b5_at(x["q"].to(torch.bfloat16), e, path_mask(e.shape[0], N_ROWS, dev), k,
+                   "BM-expansion", card, rec)
+    merge_at_path(kv, ki, X_TOP_K, "BM-expansion", card, rec)
+
+
+def path_bm(dev, card, rec) -> None:
+    """Path BM: the root benchmark scripts' `run()` on the card
+    (`hcrag_tpu_torch/benchmarks/`), each at its JAX size but
+    sharded_10m (1,048,576 rows over 2 ranks), with its own checks; then
+    every kernel each launches, at its shapes, against its plain version."""
+    from hcrag_tpu_torch.benchmarks import (
+        dispatch_floor,
+        hbm_bandwidth,
+        merge_micro,
+        reranker_eval,
+        scoring_ablation,
+        sharded_10m,
+        sharded_traffic,
+        twolevel_ablation,
+    )
+    from hcrag_tpu_torch.core.types import PRIORITY_MATRIX
+    from hcrag_tpu_torch.ops import scoring_cuda as sc
+    from hcrag_tpu_torch.ops import topk_cuda as tc
+    from hcrag_tpu_torch.ops.quantize import quantize_bank, quantize_queries
+
+    t_phase = time.time()
+    res = bm_script("BM-hbm", lambda: hbm_bandwidth.run(dev), (), card, rec)
+    rates = {k: v for k, v in res.items() if k.startswith(("xla_", "folded_"))}
+    if not all(np.isfinite(v) and v > 0 for v in rates.values()):
+        raise AssertionError(f"BM-hbm: rates {rates}")
+    log(f"[BM-hbm] GiB/s {rates}; the bounds assume {res['assumed_peak_gib_s']:.1f}; {card}")
+
+    res = bm_script("BM-dispatch", lambda: dispatch_floor.run(dev),
+                    ("float_packed_tile_topk", "packed_candidate_merge"), card, rec)
+    log(f"[BM-dispatch] t(N) = a + dN: host clock a {res['fit_dispatch_overhead_ms']:.4f} ms, "
+        f"d {res['fit_device_ms_per_1M_rows']:.4f} ms per 2^20 rows; events a "
+        f"{res['fit_event_overhead_ms']:.4f} ms, d {res['fit_event_ms_per_1M_rows']:.4f}; "
+        f"{card}")
+    n = dispatch_floor.SIZES[-1]
+    qb = unit_rows(dispatch_floor.B, dispatch_floor.D, dev, 1, torch.bfloat16)
+    e = unit_rows(n, dispatch_floor.D, dev, 2, torch.bfloat16)
+    k = tc.tile_pick_count(TOP_K, n, 2048, RESCORE)
+    kv, ki = b5_at(qb, e, torch.ones(n, dtype=torch.bool, device=dev), k, "BM-dispatch",
+                   card, rec)
+    merge_at_path(kv, ki, RESCORE, "BM-dispatch", card, rec)
+    del qb, e, kv, ki
+
+    bm_script("BM-merge", lambda: merge_micro.run(dev), ("packed_candidate_merge",), card, rec)
+    v, i = merge_micro.pool(dev)
+    b, c = v.shape
+    merge_at_path(v.view(b, c, 1), i.view(b, c, 1), merge_micro.M, "BM-merge", card, rec)
+    # B2 orders by the packed key: where its set differs from torch.topk's,
+    # the two 32nd values lie within one key quantum (2^-11 of v + 2 < 8).
+    (pv, pi), (tv, ti) = merge_micro.packed_merge(v, i), merge_micro.torch_topk(v, i)
+    moved = (torch.sort(pi, 1).values != torch.sort(ti, 1).values).any(1)
+    gap = float((pv[moved, -1] - tv[moved, -1]).abs().max()) if moved.any() else 0.0
+    log(f"[BM-merge] B2's sets equal torch.topk's but in {int(moved.sum())} of {b} rows, "
+        f"whose 32nd values lie {gap:.3g} apart (a key quantum: 2^-10 at most)")
+    if gap > 2.0**-10:
+        raise AssertionError(f"BM-merge: B2 and torch.topk part by {gap} at the boundary")
+
+    bm_script("BM-scoring", lambda: scoring_ablation.run(dev), ("batch_relevance",), card, rec)
+    rng = np.random.default_rng(3)
+    prio = torch.from_numpy(PRIORITY_MATRIX).to(dev)
+    w = torch.tensor(scoring_ablation.WEIGHTS, dtype=torch.float32, device=dev)
+    for n_nodes in scoring_ablation.NODES:
+        x = scoring_ablation.draw(rng, n_nodes)
+        t = {k: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+             for k, a in x.items()}
+        args = [t["q_emb"], t["q_bits"], t["q_counts"], t["intents"], t["n_emb"], t["n_bits"],
+                t["n_counts"], t["n_types"], w, prio, None]
+        got, want = sc.batch_relevance(*args), sc.batch_relevance_plain(*args)
+        err = float((got - want).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"BM-scoring: B6 at N={n_nodes} {err} from its plain version")
+        rec.err("batch_relevance", err)
+        b6_at(args, 0, f"BM-scoring@n{n_nodes}", f"{scoring_ablation.B} x {n_nodes}", card,
+              rec)
+
+    x = twolevel_ablation.banks(dev)
+    res = bm_script("BM-twolevel", lambda: twolevel_ablation.run(dev, data=x),
+                    ("int8_tile_topk", "packed_candidate_merge", "float_tile_topk",
+                     "float_packed_tile_topk", "int8_exact_tile_topk"), card, rec)
+    top10 = res["int8_two_level_top10_in_merge32_vs_f32_brute"]
+    log(f"[BM-twolevel] ms per call {res['ms']}; f32 top-10 inside the int8 merge-32: {top10} "
+        f"(gate {MIN_RECALL}); {card}")
+    if top10 < MIN_RECALL:
+        raise AssertionError(f"BM-twolevel: top-10 in merge-32 {top10} below {MIN_RECALL}")
+    n = x["e"].shape[0]
+    q8, qs = quantize_queries(x["q"])
+    qb = x["q"].to(torch.bfloat16)
+    k = tc.tile_pick_count(TOP_K, n, 2048, RESCORE)
+    kv, ki = b1_at(q8, qs, x["e8"], x["sc"], x["mask"], k, "BM-twolevel", card, rec)
+    merge_at_path(kv, ki, RESCORE, "BM-twolevel", card, rec)
+    b4_at(qb, x["e_bf16"], x["mask"], "BM-twolevel", card, rec)
+    kv, ki = b5_at(qb, x["e_bf16"], x["mask"], k, "BM-twolevel", card, rec)
+    merge_at_path(kv, ki, RESCORE, "BM-twolevel@b5", card, rec)
+    b3e_at(q8, qs, x["e8"], x["sc"], x["mask"], TOP_K, "BM-twolevel", card, rec)
+    del x, q8, qs, qb, kv, ki
+    free("BM-twolevel")
+
+    res = bm_script("BM-reranker", lambda: reranker_eval.run(dev), ("float_tile_topk",),
+                    card, rec)
+    ndcg = {k: res[k] for k in ("ndcg10_cosine_order", "ndcg10_baseline", "ndcg10_reranked")}
+    if not all(0.0 <= v <= 1.0 for v in ndcg.values()):
+        raise AssertionError(f"BM-reranker: NDCG@10 {ndcg}")
+    log(f"[BM-reranker] NDCG@10 over the seeded corpus ({res['rows']} rows): {ndcg}, lift "
+        f"{res['lift']:.6f}; {card}")
+    mask = torch.zeros(2048, dtype=torch.bool, device=dev)
+    mask[:res["rows"]] = True
+    b4_at(unit_rows(reranker_eval.TEST, DIM, dev, 3), unit_rows(2048, DIM, dev, 4), mask,
+          "BM-reranker", card, rec, k=reranker_eval.TOP_M)
+
+    def rank0_b4(res):
+        return {"float_tile_topk": sum(res[f"shards_{s}"]["launches"]["float_tile_topk"]
+                                       for s in BM_SHARDS)}
+
+    res = bm_script("BM-traffic", lambda: sharded_traffic.run(dev, shards=BM_SHARDS),
+                    ("float_tile_topk",), card, rec, counts=rank0_b4)
+    summary_ = res["summary"]
+    if not (summary_["matches_model"] and summary_["top10_equals_f32_brute"]
+            and summary_["rescore_traffic_constant_in_shards"]
+            and summary_["merge_traffic_scales_linearly_in_shards"]):
+        raise AssertionError(f"BM-traffic: {summary_}")
+    for s in BM_SHARDS:
+        rows = sharded_traffic.N // s
+        b4_at(unit_rows(sharded_traffic.B, sharded_traffic.D, dev, 5),
+              unit_rows(rows, sharded_traffic.D, dev, 6),
+              torch.ones(rows, dtype=torch.bool, device=dev), f"BM-traffic@{s}", card, rec,
+              k=sharded_traffic.M)
+
+    modes = tuple(sharded_10m.MODES)
+
+    def rank0_10m(res):
+        out = {}
+        for mode in modes:
+            for name, c in res[mode]["launches_by_rank"][0].items():
+                out[name] = out.get(name, 0) + c
+        return out
+
+    res = bm_script("BM-10m", lambda: sharded_10m.run(dev, n=BM_10M_ROWS, ranks=BM_10M_RANKS,
+                                                      modes=modes),
+                    ("int8_tile_topk", "float_packed_tile_topk"), card, rec, counts=rank0_10m)
+    for mode in modes:
+        r = res[mode]["recall_at_10"]
+        log(f"[BM-10m] {mode}: recall@10 {r} (gate {MIN_RECALL}), step ms by rank "
+            f"{res[mode]['step_ms_by_rank']}, peak device GiB by rank "
+            f"{res[mode]['peak_device_gib_by_rank']}, peak host RSS GiB by rank "
+            f"{res[mode]['peak_host_rss_gib_by_rank']}, host GiB added a rank "
+            f"{res[mode]['host_gib_added_per_rank']}; {card}")
+        if r < MIN_RECALL:
+            raise AssertionError(f"BM-10m {mode}: recall {r} below {MIN_RECALL}")
+    rows = res[modes[0]]["n_padded"] // BM_10M_RANKS
+    e = unit_rows(rows, DIM, dev, 7)
+    q = unit_rows(sharded_10m.BATCH, DIM, dev, 8)
+    mask = torch.ones(rows, dtype=torch.bool, device=dev)
+    k = tc.tile_pick_count(TOP_K, rows, 2048, RESCORE)
+    b5_at(q.to(torch.bfloat16), e.to(torch.bfloat16), mask, k, "BM-10m", card, rec)
+    e8, es = quantize_bank(e, dev)
+    q8, qs = quantize_queries(q)
+    b1_at(q8, qs, e8, es, mask, k, "BM-10m", card, rec)
+    log(f"[BM] phase {time.time() - t_phase:.1f} s")
+
+
 def free(label: str) -> None:
     import gc
 
@@ -3772,9 +4043,12 @@ def main() -> int:
     path_m(engine, index, graph, dev, card, rec)
     del engine
     free("M")
-    path_x(index, queries, dev, card, rec)
+    graph8 = path_x(index, queries, dev, card, rec)
     free("X")
     path_large_k(index, graph, queries, dev, card, rec)
+    path_bm_engine(index, graph, graph8, dev, card, rec)
+    del graph8
+    free("BM-expansion")
     round_to_bf16(index.emb)
     path_d3(index, graph, queries, ref, dev, card, rec)
     free("D3")
@@ -3790,6 +4064,10 @@ def main() -> int:
     path_r(dev, card, rec)
     path_r_routes(dev, card)
     free("R")
+
+    # the root benchmark scripts --------------------------------------------
+    path_bm(dev, card, rec)
+    free("BM")
 
     # 9-10. the density paths over one 10M-row index ---------------------------
     t0 = time.time()

@@ -8,7 +8,7 @@ arrays are byte-equal to the JAX package's: both draw from numpy's
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -19,11 +19,13 @@ from hcrag_tpu_torch.core.vocab import EntityVocab
 
 
 def synthetic_embeddings(
-    n: int, dim: int = 384, seed: int = 0, dtype=np.float32
+    n: int, dim: int = 384, seed: int = 0, dtype=np.float32,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """L2-normalized random embeddings, generated in chunks."""
+    """L2-normalized random embeddings, generated in chunks, into `out`
+    ([n, dim] of `dtype`, e.g. a memory-mapped file) where given."""
     rng = np.random.default_rng(seed)
-    out = np.empty((n, dim), dtype=dtype)
+    out = np.empty((n, dim), dtype=dtype) if out is None else out
     chunk = 1 << 16
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
@@ -51,10 +53,12 @@ def synthetic_bank(
     entities_per_node: int = 3,
     seed: int = 0,
     dtype=np.float32,
+    emb_out: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """(emb, type_ids, entity_bits, entity_counts) for a synthetic corpus."""
+    """(emb, type_ids, entity_bits, entity_counts) for a synthetic corpus;
+    the rows are drawn into `emb_out` where given."""
     rng = np.random.default_rng(seed + 2)
-    emb = synthetic_embeddings(n, dim, seed, dtype)
+    emb = synthetic_embeddings(n, dim, seed, dtype, out=emb_out)
     type_ids = rng.integers(0, 6, size=n).astype(np.int32)
     words = (vocab_size + 31) // 32
     bits = np.zeros((n, words), dtype=np.uint32)

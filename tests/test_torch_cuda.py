@@ -1206,3 +1206,143 @@ def test_distill_resume_on_card(cuda, tmp_path, monkeypatch):
     assert diff <= 1e-4
     with np.load(tmp_path / "full.npz") as a, np.load(tmp_path / "resumed.npz") as b:
         print("bit-equal parameters:", all(np.array_equal(a[k], b[k]) for k in a.files))
+
+
+# ---------------------------------------------------------------------------
+# The root benchmark scripts (hcrag_tpu_torch/benchmarks/): run() on the card
+# at a small size against the same run() on the CPU, timings aside.
+# ---------------------------------------------------------------------------
+_SCRIPT_SIZES = {
+    "hbm_bandwidth": dict(n=16_384, d=128),
+    "dispatch_floor": dict(sizes=(8192, 16_384), d=64, b=16, steps=2),
+    "merge_micro": dict(b=64),
+    "scoring_ablation": dict(nodes=(128, 1024), b=16, d=64, steps=2),
+    "twolevel_ablation": dict(n=20_000, d=64, b=16, steps=2),
+    "ablation": dict(n=20_000, b=64, steps=2),
+    "expansion_heavy": dict(n=20_000, b=16, steps=2),
+    "reranker_eval": {},
+    "sharded_traffic": dict(shards=(2, 4)),
+    "sharded_10m": dict(n=20_000, ranks=2, modes=("bf16_rescore", "int8_residual")),
+}
+
+
+def _untimed(name: str, res: dict) -> dict:
+    """What a script's result holds besides its times and the device."""
+    if name == "twolevel_ablation":
+        return {"recall": res["int8_two_level_top10_in_merge32_vs_f32_brute"]}
+    if name == "scoring_ablation":
+        return {"config": res["config"], "banks": sorted(k for k in res if k.startswith("n"))}
+    if name == "reranker_eval":
+        return {k: v for k, v in res.items() if k != "device"}
+    if name == "sharded_traffic":
+        return {k: ({kk: vv for kk, vv in v.items() if kk != "device"} if k == "summary" else v)
+                for k, v in res.items()}
+    if name == "sharded_10m":
+        keep = ("recall_at_10", "top_indices", "per_chip_gb", "n_padded", "self_retrieval_exact",
+                "launches_by_rank")
+        return {m: {k: e[k] for k in keep} for m, e in res.items()}
+    return {"shapes": res.get("shapes"), "keys": sorted(res)}
+
+
+@pytest.mark.parametrize("name", sorted(_SCRIPT_SIZES))
+def test_benchmark_script_on_card_equals_cpu(cuda, name):
+    """Each script's run() on the card at a small size: the same keys and
+    the same untimed results as on the CPU (the re-ranker's NDCG within
+    0.02, its untrained orders within 1e-4; a kernel's launches counted on
+    the card only)."""
+    import importlib
+
+    mod = importlib.import_module(f"hcrag_tpu_torch.benchmarks.{name}")
+    got = _untimed(name, mod.run("cuda", **_SCRIPT_SIZES[name]))
+    want = _untimed(name, mod.run("cpu", **_SCRIPT_SIZES[name]))
+    if name == "reranker_eval":
+        for k, v in want.items():
+            if isinstance(v, float):
+                tol = 1e-4 if k in ("ndcg10_cosine_order", "ndcg10_baseline_combined",
+                                    "ndcg10_baseline", "top1_agreement_baseline") else 0.02
+                assert got[k] == pytest.approx(v, abs=tol), k
+            else:
+                assert got[k] == v, k
+        return
+    if name == "sharded_traffic":
+        for s in (2, 4):
+            assert got[f"shards_{s}"].pop("launches")["float_tile_topk"] == 1
+            want[f"shards_{s}"].pop("launches")
+    if name == "sharded_10m":
+        for mode, kernels in (("bf16_rescore", ("float_packed_tile_topk",
+                                                "packed_candidate_merge")),
+                              ("int8_residual", ("int8_tile_topk", "packed_candidate_merge"))):
+            for counts in got[mode].pop("launches_by_rank"):
+                assert counts[kernels[0]] >= 1, (mode, counts)
+            want[mode].pop("launches_by_rank")
+    assert got == want
+
+
+def test_benchmark_script_variants_on_card_equal_cpu(cuda):
+    """The timed calls' outputs on the card against the CPU's: the bf16
+    read sums within f32 rounding, the int8 words' max and the copy bit for
+    bit; the ablation's reduced dots within 1e-5 of their sums of |dots|;
+    torch.topk and B2 over merge_micro's pool (B2 bit for bit); both
+    scoring routes within
+    1e-5; the twolevel rows' int8 calls (B1 + B2, B3e) bit for bit, B4's
+    indices exact, B5's values within the packed key's quantum; the
+    ablation's steps and the expansion stages (the steps on 4 rows, as
+    path X checks them) with indices and expansion exact, scores within
+    1e-5."""
+    from hcrag_tpu_torch.benchmarks import (
+        ablation,
+        expansion_heavy,
+        hbm_bandwidth,
+        merge_micro,
+        scoring_ablation,
+        twolevel_ablation,
+    )
+
+    cpu = torch.device("cpu")
+
+    def pair(make):
+        return make(cuda), make(cpu)
+
+    def same(g, w, atol=1e-5, where=""):
+        g = g if isinstance(g, (tuple, list)) else (g,)
+        w = w if isinstance(w, (tuple, list)) else (w,)
+        for j, (a, b) in enumerate(zip(g, w)):
+            a, b = a.cpu(), b.cpu()
+            if a.is_floating_point():
+                np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), atol=atol,
+                                           rtol=1e-6, err_msg=f"{where}[{j}]")
+            else:
+                np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"{where}[{j}]")
+
+    gb, wb = pair(lambda d: hbm_bandwidth.banks(d, n=16_384, d=128))
+    for (key, g), w in zip(hbm_bandwidth.variants(*gb).items(),
+                           hbm_bandwidth.variants(*wb).values()):
+        same(g(), w(), atol=0 if "copy" in key or "int8" in key else 1e-2, where=key)
+    gp, wp = pair(lambda d: merge_micro.pool(d, b=64))
+    for key in ("xla_topk_ms", "packed_pallas_ms"):
+        same(merge_micro.variants(*gp)[key](), merge_micro.variants(*wp)[key](), atol=0,
+             where=key)
+    x = scoring_ablation.draw(np.random.default_rng(3), 1024, b=16, d=64)
+    for (key, g), w in zip(scoring_ablation.variants(x, cuda).items(),
+                           scoring_ablation.variants(x, cpu).values()):
+        same(g(), w(), where=key)
+    gx, wx = pair(lambda d: twolevel_ablation.banks(d, n=20_000, d=64, b=16))
+    for (key, g), w in zip(twolevel_ablation.variants(gx).items(),
+                           twolevel_ablation.variants(wx).values()):
+        if key == "bf16_packed_two_level":  # tensor-core sums: the key's quantum may move
+            np.testing.assert_allclose(g()[0].cpu().numpy(), w()[0].numpy(), atol=2e-3)
+        else:
+            same(g(), w(), atol=0 if key.startswith("int8") else 1e-5, where=key)
+    gx, wx = pair(lambda d: ablation.setup(d, 20_000, 64))
+    scale = ablation.reduced_dots(wx["q"].abs(), wx["e"].abs())  # >= the sums of |dots|
+    for key in (ablation.DOTS, ablation.DOTS_F64):
+        got = ablation.variants(gx)[key]().cpu()
+        assert bool((got - ablation.variants(wx)[key]()).abs().le(1e-5 * scale).all()), key
+    for key in (ablation.FUSED, ablation.STEP_D1, ablation.STEP_MAX1):
+        same(ablation.variants(gx)[key](), ablation.variants(wx)[key](), where=key)
+    gx, wx = pair(lambda d: expansion_heavy.setup(d, 20_000, 16))
+    for (key, g), w in zip(expansion_heavy.variants(gx).items(),
+                           expansion_heavy.variants(wx).values()):
+        rows = slice(None) if key in ("expansion_only", "dedup_only") else slice(0, 4)
+        same([t[rows] for t in g()] if rows.stop else g(),
+             [t[rows] for t in w()] if rows.stop else w(), where=key)
