@@ -74,6 +74,13 @@ last line:
                pool takes no B2; equal to the CPU on 64 queries), recall@10
                of each and ms per step (CUDA events), B4 and B1 against their
                plain versions at these shapes;
+     path PV — the parity tools (`hcrag_tpu_torch.tools`) on the card over
+               path B's corpus and its hashing-embedder pickle:
+               `verify_parity` exits 0 (B4 at 1 x 589 rows), then
+               `agent_trace_fixture` writes its fixture and `--check`s
+               against it (exit 0 and 0); the card's traces equal the CPU's
+               (node traces, sampled ids, decisions, final keys; scores
+               within 1e-5);
      path EX — the three examples (`hcrag_tpu_torch.examples.*`) on the
                card as subprocesses, at once, `end_to_end` and
                `path_extraction` over path B's corpus, each exiting 0;
@@ -85,8 +92,8 @@ last line:
                and unit-norm) and the train step alone (ms by CUDA events,
                steps/s, tokens/s, peak memory, a profile, its bound); the
                run stopped after step 100's checkpoint and resumed to 200
-               against the uninterrupted one (bit-equal or not; embeddings
-               within `T_RESUME_TOL`); the held-out mode (100 steps, 20%
+               against the uninterrupted one (parameters bit-equal,
+               embeddings within `T_RESUME_TOL`); the held-out mode (100 steps, 20%
                held out, one variant a text) and `encoder_confidence` over
                its encoder (AUC, label balance, the ensemble's lift), loaded
                onto the card; the held-out embeddings through `query_batch`
@@ -94,6 +101,21 @@ last line:
                numpy top-10 where no tie sits at the boundary); 3 steps at
                batch 8 and max_len 64 on the card and the CPU from the same
                weights (losses within 1e-5 relative, embeddings within 1e-4);
+     path GE — the driver's entry points (`hcrag_tpu_torch.graft_entry`):
+               `entry()`'s step on the card (one B4 launch) equal to the
+               CPU's (indices exactly, floats within 1e-5);
+               `dryrun_multichip(1)` over NCCL, then 2 and 4 gloo ranks on
+               the card (each calls `dryrun_multichip` inside the group):
+               every part passes on every rank, the launches counted
+               (GE-1, GE-2, GE-4; a shard's pool of 32 takes no B2); B1,
+               B4 and B5 at a shard's shapes against their plain versions;
+               then the contrastive step at full width (the default
+               MiniLMConfig, seq 128, 32 pairs a rank) over NCCL at world
+               size 1 and on 2 gloo ranks, 12 steps: ms/step by CUDA
+               events (the median and spread of the 10 after 2 warm-up
+               steps), the gradient all-reduce's bytes and host ms, peak
+               device memory, the loss after 3 updates below the first
+               (its ratio logged), a profile of one step at world size 1;
   4. int8 path — `QueryEngine.query_batch` at 1,000,000 x 384, B=8192,
                top_k=10, depth 1 in the int8-select + f32-rescore mode
                (kernels B1, B2);
@@ -2856,9 +2878,9 @@ def path_ex(tmp: str) -> None:
 T_BATCH, T_MAX_LEN, T_STEPS, T_CHUNK, T_LR = 128, 192, 200, 50, 4e-4  # path T
 T_RESUME_AT, T_HOLDOUT_STEPS, T_TIMED_STEPS = 100, 100, 10
 T_PARITY = dict(rows=64, steps=3, batch=8, max_len=64)  # path T-parity, card vs CPU
-# An interrupted and resumed run against the uninterrupted one: equal
-# output embeddings on the card up to this (bit-equal on the CPU, where a
-# test holds it); far below the training's own movement (~1e-1 a chunk).
+# An interrupted and resumed run against the uninterrupted one: bit-equal
+# parameters, and output embeddings equal up to this (far below the
+# training's own movement, ~1e-1 a chunk).
 T_RESUME_TOL = 1e-4
 T_PARITY_LOSS_RTOL, T_PARITY_EMB_TOL = 1e-5, 1e-4
 
@@ -3027,6 +3049,8 @@ def path_t(dev, card, rec, tmp: str) -> None:
         f"{[(k.replace('params/', ''), f'{d:.3g}') for d, k in differ[:4]]}")
     if not e_diff <= T_RESUME_TOL:
         raise AssertionError(f"T-resume: embeddings differ by {e_diff} > {T_RESUME_TOL}")
+    if not bitwise:
+        raise AssertionError(f"T-resume: parameters not bit-equal, {differ[:4]}")
     del full, resumed, emb
     free("T-resume")
 
@@ -3101,6 +3125,244 @@ def path_t(dev, card, rec, tmp: str) -> None:
     if not (loss_rel <= T_PARITY_LOSS_RTOL and emb_diff <= T_PARITY_EMB_TOL):
         raise AssertionError("T-parity: card and CPU trainers differ")
     log(f"[T] path T in {time.time() - t_path:.1f} s")
+
+
+def path_pv(dev, card, rec, tmp: str) -> None:
+    """Path PV: the parity tools on the card over path B's corpus, with its
+    texts' hashing-embedder vectors as the pickle (`testing.
+    write_corpus_pairs`): `verify_parity` exits 0, `agent_trace_fixture`
+    writes its fixture and checks against it (0 and 0), launches counted
+    over both; the card's traces against the CPU's; B4 at the tools'
+    shapes."""
+    import contextlib
+    import io
+
+    from hcrag_tpu_torch.ingest.adventureworks import build_adventureworks
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.testing import write_corpus_pairs
+    from hcrag_tpu_torch.tools import agent_trace_fixture as atf
+    from hcrag_tpu_torch.tools import verify_parity
+
+    t0 = time.time()
+    data = f"{tmp}/b_corpus"
+    pk = write_corpus_pairs(data, f"{tmp}/pv_pairs.pkl")
+    src = ["--data", data, "--pickle", pk]
+    fixture = f"{tmp}/pv_fixture.json"
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        codes = (verify_parity.main(src), atf.main(src + ["--out", fixture]),
+                 atf.main(src + ["--check", "--fixture", fixture]))
+    rec.launches["PV"] = read_counts()
+    lines = buf.getvalue().splitlines()
+    log(f"[PV] verify_parity, agent_trace_fixture, --check: exit codes {codes}; "
+        f"{sum('[PASS]' in x for x in lines)} checks passed, skipped "
+        f"{[x.split('] ')[1].split(' (')[0] for x in lines if '[SKIP]' in x]}; "
+        f"launches {rec.launches['PV']}")
+    if codes != (0, 0, 0):
+        raise AssertionError("PV: a tool failed:\n" + "\n".join(lines[-40:]))
+    launched = {k: v for k, v in rec.launches["PV"].items() if v}
+    if set(launched) != {"float_tile_topk"} or launched["float_tile_topk"] < 64:
+        raise AssertionError(f"PV: launches {launched}, not B4 for each of 64 queries and more")
+    with open(fixture) as f:
+        card_traces = json.load(f)
+    cpu_traces = json.loads(json.dumps(atf.run_traces(data, pk, "cpu")))
+    for q in atf.QUESTIONS:
+        a, b = card_traces[q], cpu_traces[q]
+        for field in ("node_trace", "decision", "final_node_keys", "revision_history"):
+            if a[field] != b[field]:
+                raise AssertionError(f"PV: {q!r} {field} differs from the CPU's")
+        for sa, sb in zip(a["steps"], b["steps"], strict=True):
+            if sa["sampled"] != sb["sampled"] or sa["decision"] != sb["decision"]:
+                raise AssertionError(f"PV: {q!r} step {sa['node']} differs from the CPU's")
+            for key in ("semantic_scores", "final_scores"):
+                if len(sa[key]) != len(sb[key]) or any(
+                        abs(x - y) > 1e-5 for x, y in zip(sa[key], sb[key])):
+                    raise AssertionError(f"PV: {q!r} {key} differ from the CPU's")
+    engine = QueryEngine(build_adventureworks(data, reference_pickle=pk).index, None,
+                         device=dev)
+    q = torch.from_numpy(np.asarray(engine.index.emb[:1], np.float32)).to(dev)
+    b4_at_path(engine, torch.nn.functional.normalize(q, dim=1), "PV", card, rec)
+    log(f"[PV] card traces == CPU traces (node traces, sampled ids, decisions, final keys; "
+        f"scores within 1e-5); path PV in {time.time() - t0:.1f} s; {card}")
+
+
+GE_FULL = dict(pairs_per_rank=32, seq=128)  # the contrastive step at full width
+# One run of 12 steps: the loss after 3 updates (before step 4) must be
+# below the first; ms/step is the median of the 10 steps after 2 warm-up
+# steps, with its spread.
+GE_GATE_STEP, GE_WARMUP, GE_TIMED_STEPS = 3, 2, 10
+GE_FULL_STEPS = GE_WARMUP + GE_TIMED_STEPS
+
+
+def ge_rank(rank, world):
+    """One gloo rank of GE-2 / GE-4 (every rank on the one card):
+    `dryrun_multichip` inside the spawned group, its launches counted."""
+    from hcrag_tpu_torch import graft_entry as ge
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    zero_counts()
+    out = ge.dryrun_multichip(world)
+    return {"launches": read_counts(), "status": out["status"], "seconds": out["seconds"],
+            "agent": out["agent"], "mesh": out["mesh"], "batches": out["batches"],
+            "losses": out["contrastive"]["losses"]}
+
+
+def ge_contrastive(mesh) -> dict:
+    """`contrastive_train` at full width on this rank: its result, each
+    `_collective` call's (kind, bytes, host ms) and the peak device
+    memory."""
+    from hcrag_tpu_torch import graft_entry as ge
+    from hcrag_tpu_torch.models.minilm import MiniLMConfig
+
+    calls = []
+    real = ge._collective
+
+    def timed(kind, tensor, group):
+        t0 = time.perf_counter()
+        out = real(kind, tensor, group)
+        calls.append((kind, tensor.numel() * tensor.element_size(),
+                      1e3 * (time.perf_counter() - t0)))
+        return out
+
+    ge._collective = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = ge.contrastive_train(mesh, steps=GE_FULL_STEPS, cfg=MiniLMConfig(), **GE_FULL)
+    finally:
+        ge._collective = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del res["model"], res["grads"]
+    return dict(res, calls=calls, peak_gib=peak)
+
+
+def ge_contrastive_rank(rank, world):
+    from hcrag_tpu_torch.parallel import make_row_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return ge_contrastive(make_row_mesh(device="cuda"))
+
+
+def ge_kernels_at_shard(rows: int, label: str, dev, card, rec) -> None:
+    """B4 (f32), B5 (bf16 + exact rescore, at the dry run's 8 queries and
+    the executor's 256) and B1 (int8 + rescore) at one shard's shapes of
+    the dry run (its first `rows` rows) against their plain versions."""
+    from hcrag_tpu_torch import graft_entry as ge
+    from hcrag_tpu_torch.query.engine import QueryEngine
+    from hcrag_tpu_torch.utils.synthetic import synthetic_setup
+
+    index, graph = synthetic_setup(rows, ge.DRYRUN_DIM)
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((ge.DRYRUN_BATCH, ge.DRYRUN_DIM)).astype(np.float32)
+    sq = rng.standard_normal((ge.DRYRUN_REQUESTS, ge.DRYRUN_DIM)).astype(np.float32)
+    dq = torch.nn.functional.normalize(torch.from_numpy(q).to(dev), dim=1)
+    dsq = torch.nn.functional.normalize(torch.from_numpy(sq[:256]).to(dev), dim=1)
+    log(f"[{label}] kernels at a shard's shapes: {rows} rows x {ge.DRYRUN_DIM}")
+    b4_at_path(QueryEngine(index, graph, device=dev), dq, label, card, rec)
+    engine = QueryEngine(index, graph, device=dev, exact_rescore=32)
+    b5_at_path(engine, dq, label, card, rec)
+    b5_at_path(engine, dsq, f"{label}@256", card, rec)
+    engine = QueryEngine(index, graph, device=dev, quantize_int8=True, int8_rescore=32)
+    int8_kernels_at_path(engine, dq, label, card, rec, engine._rescore_m(), with_merge=False)
+
+
+def path_ge(dev, card, rec) -> None:
+    """Path GE: `graft_entry.entry()` and `dryrun_multichip` on the card,
+    then the contrastive step at full width (see the module's
+    docstring)."""
+    import torch.distributed as dist
+
+    from hcrag_tpu_torch import graft_entry as ge
+    from hcrag_tpu_torch.models.minilm import MiniLMConfig
+    from hcrag_tpu_torch.parallel import make_row_mesh
+    from hcrag_tpu_torch.parallel.launch import run_ranks
+
+    t_path = time.time()
+    step, args = ge.entry()
+    zero_counts()
+    got = step(*args)
+    torch.cuda.synchronize()
+    rec.launches["GE-entry"] = read_counts()
+    launched = {k: v for k, v in rec.launches["GE-entry"].items() if v}
+    if launched != {"float_tile_topk": 1}:
+        raise AssertionError(f"GE-entry: launches {launched}, not one B4")
+    cpu_step, cpu_args = ge.entry("cpu")
+    want = cpu_step(*cpu_args)
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g = g.cpu()
+        if g.dtype.is_floating_point:
+            if not float((g - w).abs().max()) <= 1e-5:
+                raise AssertionError(f"GE-entry: output {i} differs from the CPU's")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"GE-entry: output {i} differs from the CPU's")
+    log(f"[GE-entry] entry()'s step on the card: outputs {[tuple(o.shape) for o in got]} "
+        f"equal the CPU's (integers exactly, floats within 1e-5); launches {launched}")
+    bank = args[7]["emb"]
+    b4_at(args[0], bank, path_mask(bank.shape[0], 2048, dev), "GE-entry", card, rec)
+
+    for world in (1, 2, 4):
+        label, t0 = f"GE-{world}", time.time()
+        if world == 1:
+            zero_counts()
+            outs = [ge.dryrun_multichip(1)]
+            counts = read_counts()
+            if dist.is_initialized():
+                raise AssertionError("GE-1: the one-rank group outlived the dry run")
+        else:
+            outs = run_ranks(ge_rank, world, timeout_s=600)
+            counts = outs[0]["launches"]
+            for r, out in enumerate(outs[1:], 1):
+                if out["agent"] != outs[0]["agent"] or out["batches"] != outs[0]["batches"]:
+                    raise AssertionError(f"{label}: rank {r} differs from rank 0")
+        rec.launches[label] = counts
+        launched = {k: v for k, v in counts.items() if v}
+        if set(launched) != {"int8_tile_topk", "float_tile_topk", "float_packed_tile_topk"}:
+            raise AssertionError(f"{label}: launches {launched}")
+        log(f"[{label}] {outs[0]['status']}")
+        log(f"[{label}] {world} rank(s) in {time.time() - t0:.1f} s (host clock, with any "
+            f"spawn); rank 0's parts (s): "
+            f"{ {k: round(v, 2) for k, v in outs[0]['seconds'].items()} }; launches on "
+            f"rank 0 {launched} (no B2: a shard's pool of 32 stays under 4,096); {card}")
+    ge_kernels_at_shard(ge.DRYRUN_ROWS, "GE-1", dev, card, rec)
+    # GE-4's (2, 2) mesh splits the rows in two as GE-2 does: the same shapes.
+    ge_kernels_at_shard(ge.DRYRUN_ROWS // 2, "GE-2", dev, card, rec)
+
+    t0 = time.time()
+    mesh = make_row_mesh()
+    try:
+        full = {1: ge_contrastive(mesh)}
+        rows_, busy_us, wall_us = profiled(lambda: ge.contrastive_train(
+            mesh, steps=1, cfg=MiniLMConfig(), **GE_FULL), 1)
+    finally:
+        dist.destroy_process_group()
+    gemm_us = sum(us for us, key, _ in rows_ if "gemm" in key.lower())
+    log(f"[GE-contrastive] one step at world size 1 profiled (the encoder's set-up "
+        f"included): device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall, "
+        f"matrix products (gemm kernels) {gemm_us / 1e3:.3f} ms; largest "
+        f"{[(key[:60], round(us / 1e3, 3), n) for us, key, n in sorted(rows_, reverse=True)[:6]]}")
+    full[2] = run_ranks(ge_contrastive_rank, 2, timeout_s=600)[0]
+    for world, res in full.items():
+        losses, timed = res["losses"], res["step_ms"][GE_WARMUP:]
+        reduces = [c[2] for c in res["calls"]
+                   if c[0] == "all_reduce" and c[1] == res["reduce_bytes"]][GE_WARMUP:]
+        log(f"[GE-contrastive] world {world} ({'NCCL' if world == 1 else 'gloo, one card'}): "
+            f"MiniLM 6 x 384, seq {GE_FULL['seq']}, {GE_FULL['pairs_per_rank']} pairs a "
+            f"rank: losses {[round(x, 6) for x in losses]}; the gate's loss after "
+            f"{GE_GATE_STEP} updates / the first {losses[GE_GATE_STEP] / losses[0]:.4f}; "
+            f"ms/step (CUDA events) {[round(x, 3) for x in res['step_ms']]}, median of "
+            f"steps {GE_WARMUP + 1}-{GE_FULL_STEPS} {float(np.median(timed)):.3f} (min "
+            f"{min(timed):.3f}, max {max(timed):.3f}); gradient all-reduce "
+            f"{res['reduce_bytes']} bytes, host ms over those steps median "
+            f"{float(np.median(reduces)):.3f} (min {min(reduces):.3f}, max "
+            f"{max(reduces):.3f}); {len(res['calls'])} collectives; peak device "
+            f"{res['peak_gib']:.2f} GiB; {card}")
+        if not all(np.isfinite(losses)) or not losses[GE_GATE_STEP] < losses[0]:
+            raise AssertionError(f"GE-contrastive world {world}: the loss did not fall")
+    log(f"[GE] path GE in {time.time() - t_path:.1f} s (contrastive "
+        f"{time.time() - t0:.1f} s)")
 
 
 #: label -> (engine options, recall gate): path P1's modes.  The int8
@@ -4004,6 +4266,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         path_b(dev, card, rec, tmp)
+        path_pv(dev, card, rec, tmp)
         path_g(dev, card, rec, tmp)
         path_b_scale(dev, card, rec, tmp)
         log(f"[B] paths B, G and B at scale in {time.time() - t0:.1f} s")
@@ -4011,6 +4274,8 @@ def main() -> int:
         free("B")
         path_t(dev, card, rec, tmp)
     free("T")
+    path_ge(dev, card, rec)
+    free("GE")
 
     # 4-7. the paths over one 1M-row index --------------------------------------
     t0 = time.time()

@@ -32,34 +32,18 @@ Nothing is written but `--out` and the temporary directory.
 
 from __future__ import annotations
 
-import os
 import sys
 import tempfile
 import time
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from hcrag_tpu_torch.benchmarks._common import device_name, device_of, finish, log, parser
+from hcrag_tpu_torch.testing import seeded_corpus
 
 TRAIN, TEST, TOP_M, NOISE, EPOCHS = 400, 100, 20, 0.6, 60
-
-
-def seeded_corpus(root: str, seed: int = 0) -> Tuple[str, str]:
-    """(data directory, pickle) of the seeded corpus under `root`: the
-    corpus, and its texts paired with the hashing embedder's vectors."""
-    from hcrag_tpu_torch.ingest.adventureworks import process_corpus
-    from hcrag_tpu_torch.models.embedder import HashingEmbedder
-    from hcrag_tpu_torch.testing import write_adventureworks_corpus, write_golden_pairs
-
-    data = str(write_adventureworks_corpus(os.path.join(root, "corpus"), seed=seed))
-    texts, metadata = process_corpus(data)
-    embedder = HashingEmbedder()
-    embedder.fit(texts)
-    pickle = write_golden_pairs(os.path.join(root, "pairs.pkl"), texts,
-                                embedder.encode(texts), metadata)
-    return data, pickle
 
 
 def _prep(texts, emb: np.ndarray, rows, seed: int):

@@ -146,8 +146,11 @@ class MiniLMEncoder(nn.Module):
         check_exact_matmul()
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
-        x = self.norm(self.tok(input_ids) + self.pos(pos)
-                      + self.seg(torch.zeros_like(input_ids)))
+        # Every token is of segment 0, so its row is added by broadcast: its
+        # gradient is then one sum, the same from run to run, where the CUDA
+        # embedding backward over more than 3,072 equal indices is not (a
+        # resumed training run must equal the uninterrupted one).
+        x = self.norm(self.tok(input_ids) + self.pos(pos) + self.seg.weight[0])
         key_mask = attention_mask.to(torch.bool)
         for layer in self.layers:
             x = layer(x, key_mask)

@@ -610,3 +610,26 @@ def write_golden_set(root, *, device=None, seed: int = 0) -> str:
         raise FileNotFoundError("the committed distilled encoder (tools/minilm_distilled*)")
     return write_golden_pairs(os.path.join(root, "pairs.pkl"), texts,
                               teacher.encode(texts), metadata)
+
+
+def write_corpus_pairs(data, path) -> str:
+    """A pickle at `path` of the corpus under `data`: its texts
+    (`process_corpus`) paired with the hashing embedder's vectors, fitted on
+    them, with the corpus's metadata (`write_golden_pairs`)."""
+    from hcrag_tpu_torch.ingest.adventureworks import process_corpus
+    from hcrag_tpu_torch.models.embedder import HashingEmbedder
+
+    texts, metadata = process_corpus(data)
+    embedder = HashingEmbedder()
+    embedder.fit(texts)
+    return write_golden_pairs(path, texts, embedder.encode(texts), metadata)
+
+
+def seeded_corpus(root, seed: int = 0) -> Tuple[str, str]:
+    """(data directory, pickle) of the seeded corpus under `root`: the
+    corpus at the reference row counts (`write_adventureworks_corpus`) and
+    its pickle (`write_corpus_pairs`)."""
+    import os
+
+    data = str(write_adventureworks_corpus(os.path.join(root, "corpus"), seed=seed))
+    return data, write_corpus_pairs(data, os.path.join(root, "pairs.pkl"))

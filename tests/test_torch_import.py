@@ -87,6 +87,9 @@ def test_port_imports_no_jax():
         "hcrag_tpu_torch.tools.distill_minilm",
         "hcrag_tpu_torch.tools.encoder_confidence",
         "hcrag_tpu_torch.tools.convert_minilm",
+        "hcrag_tpu_torch.tools.verify_parity",
+        "hcrag_tpu_torch.tools.agent_trace_fixture",
+        "hcrag_tpu_torch.graft_entry",
         "hcrag_tpu_torch.benchmarks.ablation",
         "hcrag_tpu_torch.benchmarks.expansion_heavy",
         "hcrag_tpu_torch.benchmarks.hbm_bandwidth",

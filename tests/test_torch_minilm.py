@@ -246,3 +246,36 @@ def test_forward_refuses_tf32():
             emb.encode(["a b"])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_embedding_gradients_equal_jax_grad():
+    """The encoder adds its segment row by broadcast where Flax looks it
+    up at every position: over 4,096 tokens (some padded) the gradients of
+    the three embedding tables, the segment's two rows among them, equal
+    `jax.grad` of the Flax encoder within 1e-5 of the largest entry."""
+    import flax.traverse_util as tu
+    import jax
+    import jax.numpy as jnp
+
+    cfg = dict(vocab_size=512, hidden_size=64, num_layers=1, num_heads=4,
+               intermediate_size=128, max_position=64)
+    model = jminilm.MiniLMEncoder(jminilm.MiniLMConfig(**cfg))
+    rng = np.random.default_rng(3)
+    ids = rng.integers(3, cfg["vocab_size"], size=(64, 64)).astype(np.int32)
+    mask = (np.arange(64)[None, :] < rng.integers(8, 65, size=(64, 1))).astype(np.int32)
+    g = rng.standard_normal((64, cfg["hidden_size"])).astype(np.float32)
+    params = model.init(jax.random.PRNGKey(0), jnp.asarray(ids[:1]), jnp.asarray(mask[:1]))
+    grads = jax.grad(lambda p: jnp.sum(model.apply(p, ids, mask) * g))(params)
+    want = {f"params/Embed_{i}/embedding": np.asarray(grads["params"][f"Embed_{i}"]["embedding"])
+            for i in range(3)}
+    flat = {"/".join(k): np.array(v) for k, v in tu.flatten_dict(params).items()}
+    port = tminilm.MiniLMEncoder(tminilm.MiniLMConfig(**cfg))
+    port.load_state_dict(tminilm.flax_to_state(flat, port.cfg))
+    (port(torch.from_numpy(ids).long(), torch.from_numpy(mask)) * torch.from_numpy(g)).sum() \
+        .backward()
+    got = tminilm.flax_from_state({n: p.grad for n, p in port.named_parameters()}, port.cfg)
+    scale = max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        assert got[k].shape == v.shape
+        assert np.abs(got[k] - v).max() <= 1e-5 * scale, k
+    assert not got["params/Embed_2/embedding"][1].any()

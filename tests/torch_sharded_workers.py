@@ -603,3 +603,21 @@ def card_serving_cases(rank, world):
     return {mode: serve(ShardedQueryEngine(index, graph, mesh=mesh, ell_max_degree=8, **opts),
                         rank, lambda ex: serve_traffic(ex, q), **SERVE_KW)
             for mode, opts in CARD_MODES.items()}
+
+
+def dryrun_cases(rank, world, init):
+    """`graft_entry.dryrun_multichip` in place on this group's ranks (CPU),
+    then `contrastive_train` from `init` (JAX's initial weights): its
+    losses, step 1's averaged gradients and the trained weights, under the
+    Flax tree's names."""
+    torch.set_num_threads(1)
+    from hcrag_tpu_torch import graft_entry
+    from hcrag_tpu_torch.models.minilm import flax_from_state, state_to_flax
+    from hcrag_tpu_torch.parallel import make_row_mesh
+
+    out = graft_entry.dryrun_multichip(world, device="cpu")
+    res = graft_entry.contrastive_train(make_row_mesh(device="cpu"), init=init)
+    out["from_jax"] = {"losses": res["losses"],
+                       "grads": flax_from_state(res["grads"], graft_entry.DRYRUN_MINILM),
+                       "params": state_to_flax(res["model"])}
+    return out
