@@ -1465,7 +1465,7 @@ def path_rr(engine, index, dev, card, rec) -> None:
     import tempfile
 
     from hcrag_tpu_torch.models import reranker as rr
-    from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER
+    from hcrag_tpu_torch.utils import timing
 
     t_phase = time.time()
     rng = np.random.default_rng(17)
@@ -1501,11 +1501,12 @@ def path_rr(engine, index, dev, card, rec) -> None:
     engine.set_reranker(model)
     try:
         engine.query_batch(q, top_k=TOP_K, rerank=True)  # first call
-        GLOBAL_TIMER.reset()
-        t0 = time.perf_counter()
-        res = engine.query_batch(q, top_k=TOP_K, rerank=True)
-        total = time.perf_counter() - t0
-        stage = GLOBAL_TIMER.totals["query_batch/rerank"]
+        timing.reset()
+        with timing.recording():
+            t0 = time.perf_counter()
+            res = engine.query_batch(q, top_k=TOP_K, rerank=True)
+            total = time.perf_counter() - t0
+        stage = timing.summary()["spans"]["engine.rerank"]["host_ms"] * 1e-3
     finally:
         engine.set_reranker(None)
     plain = engine.query_batch(q, top_k=TOP_K)

@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from hcrag_tpu_torch.core.types import edge_type_id
+from hcrag_tpu_torch.utils import timing
 
 #: The pairwise dedup builds a [B, C, C] mask; past this many elements the
 #: sort-based lowering runs instead (same result).
@@ -67,6 +68,7 @@ def dedup_and_cap(
     Returns (connected [B, max_nodes] int32 padded with -1, count [B]
     int32)."""
     b = candidates.shape[0]
+    timing.count("expand.candidate_slots", b * candidates.shape[1])
     keep = _ordered_unique_mask(candidates, num_nodes)
     if exclude_seeds and seeds is not None and seeds.shape[1]:
         # Membership in the row's seeds by binary search, not a [B, C, S] mask.
@@ -161,19 +163,27 @@ def expand_batch_early_exit(
     every query of the batch has `max_nodes` unique nodes among the hops
     so far, deeper hops change no result.  After each hop but the last,
     one host sync reads whether that holds.  Depth 0 expands one hop, as
-    the JAX function does."""
+    the JAX function does.
+
+    Recorded (`utils/timing`): a span per hop and per sync; the counter
+    `expand.kept_nodes` (the final counts' sum, on the device)."""
     g = neighbors.shape[0]
     table2 = neighbors if hop2_neighbors is None else hop2_neighbors
-    last = _gather_hop(neighbors, seed_batch)
-    cands = last
-    hop = 1
+    last, hop = seed_batch, 0
     while True:
-        out, count = dedup_and_cap(cands, g, max_nodes)
-        if hop >= depth or bool((count >= max_nodes).all()):
-            return out, count
-        last = _gather_hop(table2, last)
-        cands = torch.cat([cands, last], dim=1)
         hop += 1
+        with timing.span("engine.expand.hop", hop=hop):
+            last = _gather_hop(neighbors if hop == 1 else table2, last)
+            cands = last if hop == 1 else torch.cat([cands, last], dim=1)
+            out, count = dedup_and_cap(cands, g, max_nodes)
+        if hop >= depth:
+            break
+        full = (count >= max_nodes).all()
+        with timing.span("engine.expand.sync"):
+            if bool(full):
+                break
+    timing.count("expand.kept_nodes", count)
+    return out, count
 
 
 def expansion_edges_host(

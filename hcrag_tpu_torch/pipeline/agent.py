@@ -439,14 +439,11 @@ class RetrievalAgent:
         trace: List[str] = []
         steps = 0
 
-        from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER as _timer
-
         def apply(name: str, fn) -> None:
             nonlocal steps
             steps += 1
             trace.append(name)
-            with _timer.span(f"agent/{name}"):
-                state.update(fn(state))
+            state.update(fn(state))
             if on_step:
                 on_step(name, state)
 

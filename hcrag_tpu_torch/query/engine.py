@@ -37,6 +37,11 @@ API over the step.  `refresh_index` uploads the index again after
 `DenseIndex.append`; `attach_device_encoder` makes text queries run the
 MiniLM encoder on the engine's device.
 
+Under a profiler, or inside `utils.timing.recording()`, the step records
+its spans (`engine.step`, `engine.select`, `engine.rescore`,
+`engine.metrics`, `engine.expand`, `engine.score_expanded`) and the
+expansion's counters (`utils/timing.py`).
+
 The selections are the CUDA kernels of `ops/topk_cuda.py`.  Past 128
 candidates (top_k or the rescore's oversample), which the kernels' per-tile
 lists do not hold, the engine selects as the JAX engine does off the TPU:
@@ -112,7 +117,7 @@ from hcrag_tpu_torch.ops.topk_cuda import (
     uses_packed_merge,
     uses_packed_super_merge,
 )
-from hcrag_tpu_torch.utils.timing import GLOBAL_TIMER
+from hcrag_tpu_torch.utils import timing
 
 TILE_N = 2048  # index rows per tile: the packed key's lane field is 11 bits
 SUPER_FLOAT_TILE_N = 1024  # the float path's tile under supertiles
@@ -539,14 +544,16 @@ class QueryEngine:
         `_gather_emb_rows` gives (the bf16 copy, or the int8 + residual
         reconstruction)."""
         m = self._rescore_m()
-        v, i = self._local_select(q_emb, bank, type_mask, top_k, max(top_k, m))
+        with timing.span("engine.select"):
+            v, i = self._local_select(q_emb, bank, type_mask, top_k, max(top_k, m))
         if not m:
             return v, i
         if "emb_f32" in bank:
             rows_fn = lambda ix: bank["emb_f32"][ix]  # noqa: E731
         else:
             rows_fn = lambda ix: self._gather_emb_rows(ix, bank)  # noqa: E731
-        return exact_rescore(q_emb, v, i, rows_fn, top_k)
+        with timing.span("engine.rescore"):
+            return exact_rescore(q_emb, v, i, rows_fn, top_k)
 
     def resolved_kernel_config(self, batch: int, top_k: int = 10) -> Dict:
         """The selection strategy a `query_batch` of this shape runs.
@@ -689,21 +696,22 @@ class QueryEngine:
             # --- relevance metrics on retrieved rows --------------------
             # A filler index (-1) reads the last row, as the JAX step's
             # gather does (negative indices wrap there).
-            n = type_ids.shape[0]
-            gi = top_i.to(torch.int64)
-            gi = torch.where(gi < 0, gi + n, gi)
-            sem = (top_v + 1.0) * 0.5
-            q_count = popcount_words(q_bits) + q_oov  # [B]
-            ent = entity_match(q_bits, q_count, bits[gi], counts[gi])
-            row_tids = type_ids[gi]
-            typ = priority[intent_ids[:, None], row_tids]
-            rel = metrics_reduce(
-                sem, llm_topk, ent, typ, weights, intent_ids, row_tids
-            )
-            combined = (
-                cfg.COMBINED_RELEVANCE_WEIGHT * rel
-                + cfg.COMBINED_SIMILARITY_WEIGHT * top_v
-            )
+            with timing.span("engine.metrics"):
+                n = type_ids.shape[0]
+                gi = top_i.to(torch.int64)
+                gi = torch.where(gi < 0, gi + n, gi)
+                sem = (top_v + 1.0) * 0.5
+                q_count = popcount_words(q_bits) + q_oov  # [B]
+                ent = entity_match(q_bits, q_count, bits[gi], counts[gi])
+                row_tids = type_ids[gi]
+                typ = priority[intent_ids[:, None], row_tids]
+                rel = metrics_reduce(
+                    sem, llm_topk, ent, typ, weights, intent_ids, row_tids
+                )
+                combined = (
+                    cfg.COMBINED_RELEVANCE_WEIGHT * rel
+                    + cfg.COMBINED_SIMILARITY_WEIGHT * top_v
+                )
 
             b = q_emb.shape[0]
             if not has_graph:
@@ -716,32 +724,34 @@ class QueryEngine:
                 )
 
             # --- expansion -----------------------------------------------
-            seeds = torch.where(top_v >= -1.0, bank["graph_ids"][gi], -1)
-            expanded, exp_count = self._expand_impl(bank, seeds, depth, max_expanded)
+            with timing.span("engine.expand"):
+                seeds = torch.where(top_v >= -1.0, bank["graph_ids"][gi], -1)
+                expanded, exp_count = self._expand_impl(bank, seeds, depth, max_expanded)
 
             # --- expanded-node scoring -----------------------------------
-            valid = expanded >= 0
-            safe_nodes = torch.where(valid, expanded, 0).to(torch.int64)
-            rows = self._gather_graph(bank["g_row"], safe_nodes)  # [B, E]; -1 = none
-            has_row = rows >= 0
-            safe_rows = torch.where(has_row, rows, 0).to(torch.int64)
-            e_emb = (
-                self._gather_emb_rows(safe_rows, bank).to(torch.float32)
-                * has_row[..., None]
-            )
-            sem_e = (
-                (e_emb * q_emb.to(torch.float32)[:, None, :]).sum(dim=-1) + 1.0
-            ) * 0.5
-            e_bits = torch.where(has_row[..., None], bits[safe_rows], 0)
-            e_counts = torch.where(has_row, counts[safe_rows], 0)
-            ent_e = entity_match(q_bits, q_count, e_bits, e_counts)
-            e_tids = self._gather_graph(bank["g_type_ids"], safe_nodes)
-            typ_e = priority[intent_ids[:, None], e_tids]
-            rel_e = metrics_reduce(
-                sem_e, torch.zeros_like(sem_e), ent_e, typ_e, weights,
-                intent_ids, e_tids,
-            )
-            rel_e = torch.where(valid, rel_e, 0.0)
+            with timing.span("engine.score_expanded"):
+                valid = expanded >= 0
+                safe_nodes = torch.where(valid, expanded, 0).to(torch.int64)
+                rows = self._gather_graph(bank["g_row"], safe_nodes)  # [B, E]; -1 = none
+                has_row = rows >= 0
+                safe_rows = torch.where(has_row, rows, 0).to(torch.int64)
+                e_emb = (
+                    self._gather_emb_rows(safe_rows, bank).to(torch.float32)
+                    * has_row[..., None]
+                )
+                sem_e = (
+                    (e_emb * q_emb.to(torch.float32)[:, None, :]).sum(dim=-1) + 1.0
+                ) * 0.5
+                e_bits = torch.where(has_row[..., None], bits[safe_rows], 0)
+                e_counts = torch.where(has_row, counts[safe_rows], 0)
+                ent_e = entity_match(q_bits, q_count, e_bits, e_counts)
+                e_tids = self._gather_graph(bank["g_type_ids"], safe_nodes)
+                typ_e = priority[intent_ids[:, None], e_tids]
+                rel_e = metrics_reduce(
+                    sem_e, torch.zeros_like(sem_e), ent_e, typ_e, weights,
+                    intent_ids, e_tids,
+                )
+                rel_e = torch.where(valid, rel_e, 0.0)
             return top_v, top_i, rel, combined, expanded, exp_count, rel_e
 
         return step
@@ -804,43 +814,47 @@ class QueryEngine:
         else is L2-normalized on the host.  `dynamic_weight_tensor`
         ([4, NUM_INTENTS, NUM_NODE_TYPES]) switches the reduction to
         per-(intent, node-type) weights."""
-        dev = self.device
-        q = self._query_tensor(query_embs)
-        b = q.shape[0]
+        with timing.span("engine.step") as span:
+            dev = self.device
+            q = self._query_tensor(query_embs)
+            b = q.shape[0]
+            if span is not None:
+                span.attrs.update(batch=b, top_k=top_k, depth=expansion_depth,
+                                  max_expanded=max_expanded)
 
-        if intents is None:
-            intent_ids = torch.zeros((b,), dtype=torch.int64, device=dev)
-        else:
-            intent_ids = self._put_operand(np.array([i.index for i in intents], dtype=np.int64))
+            if intents is None:
+                intent_ids = torch.zeros((b,), dtype=torch.int64, device=dev)
+            else:
+                intent_ids = self._put_operand(np.array([i.index for i in intents], dtype=np.int64))
 
-        vocab = self.index.vocab
-        qb = np.zeros((b, vocab.num_words), dtype=np.uint32)
-        qo = np.zeros(b, dtype=np.int32)
-        for i, ents in enumerate(entity_lists or ()):
-            qb[i], qo[i] = vocab.encode(ents)
-        q_bits, q_oov = self._put_operand(qb.view(np.int32)), self._put_operand(qo)
-        type_mask = self._type_mask(category_filter)
+            vocab = self.index.vocab
+            qb = np.zeros((b, vocab.num_words), dtype=np.uint32)
+            qo = np.zeros(b, dtype=np.int32)
+            for i, ents in enumerate(entity_lists or ()):
+                qb[i], qo[i] = vocab.encode(ents)
+            q_bits, q_oov = self._put_operand(qb.view(np.int32)), self._put_operand(qo)
+            type_mask = self._type_mask(category_filter)
 
-        w, reduction = scorer_spec(scorer_type, weights)
-        if dynamic_weight_tensor is not None:
-            w = np.asarray(dynamic_weight_tensor, dtype=np.float32)
-            if w.shape != (4, NUM_INTENTS, NUM_NODE_TYPES):
-                raise ValueError(
-                    "dynamic_weight_tensor must be [4 metrics, "
-                    f"{NUM_INTENTS} intents, {NUM_NODE_TYPES} node types], "
-                    f"got {w.shape}"
-                )
-            reduction = REDUCE_WEIGHTED_SUM
-        if llm_scores is None:
-            llm_topk = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
-        else:
-            llm_topk = self._put_operand(np.asarray(llm_scores, dtype=np.float32))
+            w, reduction = scorer_spec(scorer_type, weights)
+            if dynamic_weight_tensor is not None:
+                w = np.asarray(dynamic_weight_tensor, dtype=np.float32)
+                if w.shape != (4, NUM_INTENTS, NUM_NODE_TYPES):
+                    raise ValueError(
+                        "dynamic_weight_tensor must be [4 metrics, "
+                        f"{NUM_INTENTS} intents, {NUM_NODE_TYPES} node types], "
+                        f"got {w.shape}"
+                    )
+                reduction = REDUCE_WEIGHTED_SUM
+            if llm_scores is None:
+                llm_topk = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
+            else:
+                llm_topk = self._put_operand(np.asarray(llm_scores, dtype=np.float32))
 
-        step = self._build_step(top_k, expansion_depth, max_expanded, reduction)
-        return step(
-            q, q_bits, q_oov, intent_ids, self._put_operand(w), type_mask, llm_topk,
-            self._bank(),
-        )
+            step = self._build_step(top_k, expansion_depth, max_expanded, reduction)
+            return step(
+                q, q_bits, q_oov, intent_ids, self._put_operand(w), type_mask, llm_topk,
+                self._bank(),
+            )
 
     def query_batch(
         self, query_embs, *, rerank: bool = False, **kwargs
@@ -882,7 +896,7 @@ class QueryEngine:
         score -inf and stay last.  Without a re-ranker, `res` as it is."""
         if self.reranker is None:
             return res
-        with GLOBAL_TIMER.span("query_batch/rerank"):
+        with timing.span("engine.rerank"):
             feats = engine_candidate_features(
                 self, res, intents=intents, entity_lists=entity_lists
             )
@@ -943,20 +957,17 @@ class QueryEngine:
         stays cheap."""
         parsed = {"search_text": query}
         if parser is not None:
-            with GLOBAL_TIMER.span("process_query/parse"):
-                try:
-                    parsed = parser.parse_query(query)
-                except Exception:
-                    parsed = {"search_text": query}
+            try:
+                parsed = parser.parse_query(query)
+            except Exception:
+                parsed = {"search_text": query}
         search_text = parsed.get("search_text", query)
-        with GLOBAL_TIMER.span("process_query/embed"):
-            query_embedding = np.asarray(self.embedder.encode([search_text])[0])
-        with GLOBAL_TIMER.span("process_query/retrieve"):
-            results = self.find_similar_content(
-                query_embedding,
-                top_k=top_k,
-                similarity_threshold=similarity_threshold,
-            )
+        query_embedding = np.asarray(self.embedder.encode([search_text])[0])
+        results = self.find_similar_content(
+            query_embedding,
+            top_k=top_k,
+            similarity_threshold=similarity_threshold,
+        )
         avg = (
             float(np.mean([r["similarity_score"] for r in results]))
             if results
@@ -977,15 +988,14 @@ class QueryEngine:
                 hasattr(self.embedder, "load_params") and self.index.n <= 100_000
             )
         if want_conf:
-            with GLOBAL_TIMER.span("process_query/confidence"):
-                bank = np.asarray(self.index.emb, np.float32)
-                bank_norm = bank / np.maximum(
-                    np.linalg.norm(bank, axis=1, keepdims=True), 1e-12
-                )
-                out["encoder_confidence"] = encoder_confidence(
-                    self.embedder, bank_norm, search_text,
-                    query_emb=query_embedding[None, :],
-                )
+            bank = np.asarray(self.index.emb, np.float32)
+            bank_norm = bank / np.maximum(
+                np.linalg.norm(bank, axis=1, keepdims=True), 1e-12
+            )
+            out["encoder_confidence"] = encoder_confidence(
+                self.embedder, bank_norm, search_text,
+                query_emb=query_embedding[None, :],
+            )
         return out
 
     def search_by_category(

@@ -327,6 +327,33 @@ def test_engine_on_card_ignores_tf32(small_engines):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
+def test_recorder_on_card(small_engines):
+    """Recording the step on the card changes none of its outputs, records
+    every span of the step (two syncs at depth 3), and the kept-node
+    counter summed on the device equals the counts."""
+    from hcrag_tpu_torch.utils import timing
+
+    gpu, _, q = small_engines
+    kw = dict(top_k=10, expansion_depth=3, max_expanded=1024)
+    want = gpu.query_batch(q, **kw)
+    timing.reset()
+    try:
+        with timing.recording():
+            got = gpu.query_batch(q, **kw)
+        out = timing.summary()
+    finally:
+        timing.reset()
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    assert out["steps"] == 1
+    for name in ("engine.select", "engine.rescore", "engine.metrics", "engine.expand",
+                 "engine.score_expanded"):
+        assert out["spans"][name]["n"] == 1, name
+    assert out["spans"]["engine.expand.hop"]["n"] == 3
+    assert out["spans"]["engine.expand.sync"]["n"] == 2
+    assert out["counters"]["expand.kept_nodes"] == int(got.expanded_counts.sum())
+
+
 B3E_CASES = [(5, 5000, 128, 10, 1024), (70, 9000, 384, 16, 2048),
              (64, 4096, 128, 128, 2048), (130, 2100, 384, 33, 2048)]
 
