@@ -26,16 +26,18 @@ last line:
                in the bank, and on the int8 tensor cores at B1's edge
                shapes, d = 1040 and k 11-17, each kind of its lists); B4
                (f32 and bf16 banks) and B5 at the same shapes under the
-               rules of `hcrag_tpu_torch/testing.py`, B4 on its CUDA-core
-               loop's edge shapes (d 64 and 1024, tiles of 64 and 192 rows,
-               k 1-128) by that rule and bit for bit on exact dots, and
+               rules of `hcrag_tpu_torch/testing.py`, B4 at its loops' edge
+               shapes (d 64 and 1024, tiles of 64 and 192 rows, k 1-128;
+               over bf16 on both its tensor-core and CUDA-core routes) by
+               that rule and bit for bit on exact dots, and
                exactly on a zero query, on one-hot queries under a filter
                that leaves fewer than k rows in a tile, and in the
                pick-count raise case; B5 on the tensor cores bit for bit on
                exact dots at per-tile k 1, 10, 100 and 128, d 128 and 384,
                and by `testing.py` on normal inputs at the same shapes; the
-               tensor-core loop's largest |dot - float64 dot| against
-               `testing.TC_DOT_ERROR`; B6 within
+               tensor-core loop's largest |dot - float64 dot| (the sums of
+               B5, B7f and B4 over bf16) against `testing.TC_DOT_ERROR`; B6
+               within
                1e-5 in both regimes: the byte-bound kernel at query blocks
                of 1-16 (one query x 2048-32768 nodes, ragged node counts,
                scalar rows at d = 383, d = 1040) and the tiled CUDA-core
@@ -587,12 +589,13 @@ def phase_float_kernels(dev, err: dict) -> None:
 
     def run(kernel, args, k, tile):
         out = getattr(tc, kernel)(*args, k, tile_n=tile)
-        plain = getattr(tc, kernel + "_plain")(*args, k, tile_n=tile)
+        plain_of = "float_tile_topk" if kernel == "float_tile_topk_core" else kernel
+        plain = getattr(tc, plain_of + "_plain")(*args, k, tile_n=tile)
         torch.cuda.synchronize()
         return out + plain
 
-    def b4(name, args, k=TOP_K, tile=2048):
-        kv, ki, pv, pi = run("float_tile_topk", args, k, tile)
+    def b4(name, args, k=TOP_K, tile=2048, kernel="float_tile_topk"):
+        kv, ki, pv, pi = run(kernel, args, k, tile)
         e, moved = check_exact_topk(kv, ki, pv, pi, *args)
         err["float_tile_topk"] = max(err["float_tile_topk"], e)
         log(f"  B4 {name}: b={args[0].shape[0]} n={args[1].shape[0]} "
@@ -650,17 +653,21 @@ def phase_float_kernels(dev, err: dict) -> None:
         raise AssertionError(f"pick-count raise gave {k_raised}, want 16")
     b5("pick_raise", float_inputs(100, 2100, DIM, 25, dev, torch.bfloat16), k_raised)
     b4("k128_ragged_queries", float_inputs(130, 4096, 128, 26, dev, torch.float32), 128)
-    # B4's CUDA-core loop at its edge shapes (d of 64 and 1024, tiles of 64
-    # and 192 rows, k 1 to 128), by the rule above and bit for bit on exact
-    # dots, over both banks.
+    # B4 at its loops' edge shapes (d of 64 and 1024, tiles of 64 and 192
+    # rows, k 1 to 128, buffers in 128-query tensor-core blocks at k = 24),
+    # by the rule above and bit for bit on exact dots: over f32 the
+    # CUDA-core loop; over bf16 the route `b4_on_tensor_cores` picks, and
+    # the CUDA-core loop (`float_tile_topk_core`).
     for b, n, d, k, tile in ((1, 3000, 64, 1, 64), (129, 3000, 1024, 17, 512),
                              (130, 2500, 1024, 128, 2048), (63, 1000, 768, 1, 192),
-                             (1024, 2100, DIM, TOP_K, 2048)):
-        for dtype in (torch.float32, torch.bfloat16):
-            b4("core_loop", float_inputs(b, n, d, 30 + k + d, dev, dtype), k, tile)
-            exact(f"B4 exact_dots b={b} n={n} d={d} k={k} tile={tile} {str(dtype)[6:]}",
-                  *run("float_tile_topk", dyadic_inputs(b, n, d, 31 + k + d, dev, dtype),
-                       k, tile))
+                             (1024, 2100, DIM, TOP_K, 2048), (130, 4100, DIM, 24, 2048)):
+        for dtype, kernel in ((torch.float32, "float_tile_topk"),
+                              (torch.bfloat16, "float_tile_topk"),
+                              (torch.bfloat16, "float_tile_topk_core")):
+            b4(kernel, float_inputs(b, n, d, 30 + k + d, dev, dtype), k, tile, kernel)
+            exact(f"B4 exact_dots {kernel} b={b} n={n} d={d} k={k} tile={tile} "
+                  f"{str(dtype)[6:]}",
+                  *run(kernel, dyadic_inputs(b, n, d, 31 + k + d, dev, dtype), k, tile))
     b5("k128_ragged_queries", float_inputs(130, 4096, 128, 27, dev, torch.bfloat16), 128)
 
     # B5 over a bf16 bank runs on the tensor cores: bit for bit on exact
@@ -674,8 +681,9 @@ def phase_float_kernels(dev, err: dict) -> None:
                                                             k, 2048))
         b5(f"normal k={k} d={d}", float_inputs(b, n, d, 41 + k + d, dev, torch.bfloat16), k)
 
-    # How far the tensor-core loop's sums lie from the float64 dots
-    # (`testing.TC_DOT_ERROR` is the band the card tests hold it to).
+    # How far the tensor-core loop's sums (B5, B7f and B4 over bf16) lie
+    # from the float64 dots (`testing.TC_DOT_ERROR` is the band the card
+    # tests hold it to).
     from hcrag_tpu_torch.testing import TC_DOT_ERROR
 
     q, e, _ = float_inputs(512, 65_536, DIM, 42, dev, torch.bfloat16)
@@ -683,7 +691,8 @@ def phase_float_kernels(dev, err: dict) -> None:
     f32 = (q.float() @ e.float().T).double()
     want = q.double() @ e.double().T
     tc_err, f32_err = (float((x.double() - want).abs().max()) for x in (dots, f32))
-    log(f"  tensor-core dot loop (bf16_tc_dots) over 512 x 65,536 normalized rows, d={DIM}: "
+    log(f"  tensor-core dot loop of B5, B7f and B4 over bf16 (bf16_tc_dots) over 512 x 65,536 "
+        f"normalized rows, d={DIM}: "
         f"max |dot - float64 dot| {tc_err:.3g} (an f32 matrix product: {f32_err:.3g}; "
         f"band {TC_DOT_ERROR:g})")
     if tc_err > TC_DOT_ERROR:

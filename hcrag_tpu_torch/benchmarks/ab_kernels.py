@@ -20,7 +20,9 @@ shapes of the `chip_smoke.py` paths that run each kernel:
   B5   float_packed_tile_topk       path F2 (bf16 bank, k=10), path X (B=256, k=100)
   B7f  float_packed_super_tile_topk path S1: 8192-row supertiles, k_sub=16
   B4   float_tile_topk              path F1 (f32 bank, B=1024, k=10), path K
-                                    (bf16 bank, B=512, k=10)
+                                    (bf16 bank, B=512, k=10), kg1m_bf16's
+                                    batch1k (bf16, B=1024, k=10) and graph3
+                                    (bf16, B=512, k=100)
   B6   batch_relevance              path R (1 x 8192 nodes, W=8, llm column),
                                     the JAX ablation (256 x 8192 nodes)
 
@@ -65,6 +67,8 @@ CASES = {
     "X B5": ("float_packed_tile_topk", 256, 100, 2048, "bf16", N_BANK),
     "F1 B4": ("float_tile_topk", 1024, 10, 2048, "f32", N_TILED),
     "K B4": ("float_tile_topk", 512, 10, 2048, "bf16", N_TILED),
+    "batch1k B4": ("float_tile_topk", 1024, 10, 2048, "bf16", N_TILED),
+    "graph3 B4": ("float_tile_topk", 512, 100, 2048, "bf16", N_TILED),
     "int8 B3e": ("int8_exact_tile_topk", 2048, 10, 2048, "int8", N_TILED),
 }
 #: B6 case -> (queries, nodes); W = 8 words, D = 384, with an llm column.

@@ -45,33 +45,40 @@
 // 6.3e12 operations (6.4 ms at the bf16 tensor-core rate), bound by
 // operations.
 //
-// The dot.  Over an f32 bank (and for B4 over either type) the products are
-// full f32 FMAs on the CUDA cores, accumulated with __fmaf_rn in index
-// order (float_dot.cuh; bf16 values are widened to f32, where their
-// products are exact): no TF32, as the TPU kernel pins Precision.HIGHEST.
-// B5 and B7f over a bf16 bank (the caller passes bf16 queries, as the TPU
-// kernel casts the query to the bank's type) run on the bf16 tensor cores
-// with f32 sums (tc_tile_topk.cuh), which add in their own order: their keys
-// equal the plain version's on exact dots and agree to rounding elsewhere
-// (testing.py states how far).
+// The dot.  Over an f32 bank the products are full f32 FMAs on the CUDA
+// cores, accumulated with __fmaf_rn in index order (float_dot.cuh): no
+// TF32, as the TPU kernel pins Precision.HIGHEST.  Over a bf16 bank (the
+// caller passes bf16 queries, as the TPU kernel casts the query to the
+// bank's type) B4, B5 and B7f run on the bf16 tensor cores with f32 sums
+// (tc_tile_topk.cuh): bf16 x bf16 products are exact in f32, and the sums
+// stay f32 but add in the tensor cores' own order, within
+// testing.TC_DOT_ERROR of the float64 dots.  Their keys equal the plain
+// version's on exact dots and agree to rounding elsewhere (testing.py
+// states how far).  B4 over bf16 takes the CUDA-core loop where the tensor
+// cores would run 64-query blocks with shared-memory buffers (k = 100 at
+// d = 384, slower there on an H100), or where no plan fits.
 //
 // What bounds it on an H100: at path F1 (B4: B = 1024 queries, N = 1,001,472
 // rows, D = 384, f32) it does 2*B*N*D = 0.79e12 f32 operations, 11.8 ms at
 // the 67 TFLOP/s of the CUDA cores, against 1.54 GB of bank (0.46 ms at
-// 3.35 TB/s); at path F2 (B5: B = 8192, bf16 bank) 6.3e12 operations, 6.4 ms
-// at the 989 TFLOP/s bf16 tensor-core rate, against a 0.77 GB bank.  Both
-// are bound by operations.  The tensor-core kernel (tc_tile_topk.cuh, which
-// B1 and B7i share) brings B5 and B7f within about 6x of that bound; what
-// keeps them there is in PERF.md.
+// 3.35 TB/s); over the same bank in bf16 (B4 in kg1m_bf16.batch1k) the same
+// operations take 0.80 ms at the 989 TFLOP/s bf16 tensor-core rate, against
+// a 0.77 GB bank; at path F2 (B5: B = 8192, bf16 bank) 6.3e12 operations,
+// 6.4 ms.  All are bound by operations.  The tensor-core kernel
+// (tc_tile_topk.cuh, which B1, B3e and B7i share) brings B5 and B7f within
+// about 6x of that bound, and B4 over bf16 with its 64-bit key within about
+// 7x (5.7 ms against 0.80 at kg1m_bf16.batch1k's shape on an H100 at 700 W);
+// what keeps them there, the selection epilogue, is in PERF.md.
 //
-// Design of the CUDA-core kernel (B4 over either bank, B5 and B7f over an
-// f32 bank): one block takes QB = 128 queries and one tile, and runs the
-// register-tiled loop of float_dot.cuh (which B8 shares) over the tile's
-// 128-row sub-tiles.  The selection is a filtering epilogue, not a merge of
-// every key: after each sub-tile each thread holds the 8 x 8 sums of its 8
-// queries and 8 rows, and compares them, half a sub-tile (64 rows) at a
-// time, against each query's current k-th best key of the tile, read from
-// the query's sorted list in shared memory.  For B4's 64-bit key it
+// Design of the CUDA-core kernel (B4, B5 and B7f over an f32 bank, B4 over
+// a bf16 bank where the tensor cores do not take it): one block takes
+// QB = 128 queries and one tile, and runs the register-tiled loop of
+// float_dot.cuh (which B8 shares) over the tile's 128-row sub-tiles.  The
+// selection is a filtering epilogue, not a merge of every key: after each
+// sub-tile each thread holds the 8 x 8 sums of its 8 queries and 8 rows,
+// and compares them, half a sub-tile (64 rows) at a time, against each
+// query's current k-th best key of the tile, read from the query's sorted
+// list in shared memory.  For B4's 64-bit key it
 // compares the 32-bit order-preserving value word first, and builds the
 // 64-bit key (word << 32 | ~row) only where the word reaches the k-th
 // one's (an equal word with a lower row still gets in).  Survivors go to
@@ -344,8 +351,8 @@ int launch(const K policy, const void* q, const void* e, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// B4 (ExactKey) and every f32 bank take the CUDA-core loop; the packed
-// policies over a bf16 bank take the tensor cores.
+// Every f32 bank takes the CUDA-core loop: the tensor cores would need
+// TF32, a lower precision.
 template <typename K>
 int launch_typed(const K policy, const void* q, const void* e,
                  const void* mask, void* out_v, void* out_i, int b, int n,
@@ -371,17 +378,63 @@ int launch_packed(const K policy, const void* q, const void* e, const void* mask
 
 }  // namespace
 
+namespace tc_tile {
+
+// B4 over a bf16 bank on the tensor cores: tc_tile_topk.cuh's loop under
+// B4's own kernel name.
+template <int TQB, int KC, typename Op, typename K, bool DOTS>
+__global__ void __launch_bounds__(TQB * 2 + 32)
+float_tile_topk_kernel_tc(const __grid_constant__ CUtensorMap emap,
+                          const unsigned char* __restrict__ q,
+                          const float* __restrict__ q_scale, const float* __restrict__ e_scale,
+                          const uint8_t* __restrict__ mask, float* __restrict__ out_v,
+                          int* __restrict__ out_i, int b, int n, int d, int k, int tile_n,
+                          int tiles, const K policy) {
+#include "tc_tile_topk_loop.cuh"
+}
+
+}  // namespace tc_tile
+
+namespace {
+
+struct B4Kernels {
+  template <int TQB, int KC, typename Op, typename K, bool DOTS>
+  static auto get() { return tc_tile::float_tile_topk_kernel_tc<TQB, KC, Op, K, DOTS>; }
+};
+
+}  // namespace
+
 // C entry points, bound with ctypes.  Pointers are device pointers:
 //   q [b, d] and e [n, d], both f32 (bf16 == 0) or both bf16 (bf16 != 0),
-//   mask [n] bool (one byte each), out_v [b, tiles, k] f32,
-//   out_i [b, tiles, k] int32, with tiles = ceil(n / tile_n) (B7f: the
-//   supertiles, ceil(n / lbits)).
+//   mask [n] bool (one byte each; on a 4-byte boundary where the tensor
+//   cores run), out_v [b, tiles, k] f32, out_i [b, tiles, k] int32, with
+//   tiles = ceil(n / tile_n) (B7f: the supertiles, ceil(n / lbits)).
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
+//   B4 over a bf16 bank runs on the tensor cores where they take 128
+//   queries a block, or 64 with register lists (k <= 16); elsewhere (a
+//   64-query block with shared-memory buffers, which ran slower than the
+//   CUDA-core loop on an H100, or no plan that fits) on the CUDA-core loop.
+//   topk_cuda.b4_on_tensor_cores states the same rule.
 extern "C" int float_tile_topk(const void* q, const void* e, const void* mask,
                                void* out_v, void* out_i, int b, int n, int d,
                                int k, int tile_n, int bf16, void* stream) {
+  const int qb = tc_tile::block_queries<tc_tile::Bf16>(d, k, sizeof(ExactKey::Key));
+  if (bf16 && (qb == 128 || (qb == 64 && k <= tc_tile::KCAP)))
+    return tc_tile::launch<tc_tile::Bf16, ExactKey, false, B4Kernels>(
+        ExactKey{}, {q, nullptr, e, nullptr, mask, out_v, out_i, b, n, d, k, tile_n, 0, stream},
+        2048);
   return launch_typed(ExactKey{}, q, e, mask, out_v, out_i, b, n, d, k, tile_n,
                       2048, bf16, stream);
+}
+
+// B4 on the CUDA-core loop over either bank, whatever the rule above says:
+// the loop that B4 over bf16 leaves where the tensor cores fit, kept for
+// testing and timing it beside them (not on a query path).
+extern "C" int float_tile_topk_core(const void* q, const void* e, const void* mask,
+                                    void* out_v, void* out_i, int b, int n, int d, int k,
+                                    int tile_n, int bf16, void* stream) {
+  return launch_typed(ExactKey{}, q, e, mask, out_v, out_i, b, n, d, k, tile_n, 2048, bf16,
+                      stream);
 }
 
 extern "C" int float_packed_tile_topk(const void* q, const void* e,

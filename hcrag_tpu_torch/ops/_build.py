@@ -114,12 +114,13 @@ KERNEL_NAMES = ("Int8", "Bf16", "PackedKey", "SuperKey", "ExactKey", "__nv_bfloa
 def kernel_label(mangled: str) -> str:
     """A readable name for a mangled kernel: its base name, then its
     template's integers, known types and a set DOTS flag, as
-    tc_tile_topk_kernel<128,16,Int8,PackedKey>."""
+    tc_tile_topk_kernel<128,16,Int8,PackedKey> (a kernel's name ends in
+    `_kernel`, or `_kernel_tc` for B4's tensor-core kernel)."""
     base = None
     for i in range(len(mangled)):  # names are length-prefixed
         m = re.match(r"\d+", mangled[i:])
         name = mangled[i + m.end():i + m.end() + int(m.group())] if m else ""
-        if name.endswith("_kernel"):
+        if name.endswith(("_kernel", "_kernel_tc")):
             base = name
             break
     if base is None:

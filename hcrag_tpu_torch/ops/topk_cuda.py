@@ -16,7 +16,8 @@ Counterpart of `pallas_cosine_top_k_int8`, `pallas_cosine_top_k`,
     (value | slot-major position) key;
   * `float_tile_topk` (kernel B4, csrc/float_tile_topk.cu) — f32 or bf16
     dots, additive mask and the exact top-k of every tile by raw value, ties
-    to the lowest row;
+    to the lowest row; over a bf16 bank on the tensor cores where their
+    plan fits (`b4_on_tensor_cores`), else on the CUDA cores;
   * `float_packed_tile_topk` (kernel B5, csrc/float_tile_topk.cu) — B1's
     packed-key selection over a float dot;
   * `int8_super_tile_topk` and `float_packed_super_tile_topk` (kernel B7,
@@ -40,6 +41,7 @@ import torch
 from hcrag_tpu_torch.ops import _build
 from hcrag_tpu_torch.ops.quantize import check_exact_matmul, quantize_queries
 from hcrag_tpu_torch.ops.similarity import top_k as stable_top_k
+from hcrag_tpu_torch.utils import timing
 
 NEG_INF = -1e30
 LANE_BITS = 2048  # B1/B5: the 11 low bits of a packed key hold 2047 - lane
@@ -63,6 +65,7 @@ _SIGNATURES = {
     "int8_super_tile_topk": (_VP,) * 7 + (_I,) * 5 + (_VP,),
     "packed_candidate_merge": (_VP,) * 4 + (_I,) * 5 + (_VP,),
     "float_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    "float_tile_topk_core": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "float_packed_super_tile_topk": (_VP,) * 5 + (_I,) * 6 + (_VP,),
     "bf16_tc_dots": (_VP,) * 3 + (_I,) * 3 + (_VP,),
@@ -70,6 +73,7 @@ _SIGNATURES = {
 _SOURCES = {  # entry point -> csrc/<source>.cu, where the two differ
     "int8_exact_tile_topk": "int8_tile_topk",
     "int8_super_tile_topk": "int8_tile_topk",
+    "float_tile_topk_core": "float_tile_topk",
     "float_packed_tile_topk": "float_tile_topk",
     "float_packed_super_tile_topk": "float_tile_topk",
     "bf16_tc_dots": "float_tile_topk",
@@ -199,31 +203,38 @@ def _check_tiles(tile_n: int, k: int, super_rows: bool) -> None:
 
 def tc_smem_bytes(qb: int, d: int, k: int, elem_bytes: int = 2, key_bytes: int = 4) -> int:
     """Shared memory of the tensor-core kernel of B1 / B3e / B7i (int8,
-    elem_bytes 1) and B5 / B7f (bf16, elem_bytes 2), csrc/tc_tile_topk.cuh,
-    with qb queries per block: 1024 bytes of alignment, the query block in
-    whole 128-byte chunks of each row, four 64-row chunks with their two
-    mbarriers each, the key buffers and the lists (key_bytes a key: 8 for
-    B3e, 4 for the others) and their counts."""
+    elem_bytes 1) and B5 / B7f / B4 (bf16, elem_bytes 2),
+    csrc/tc_tile_topk.cuh, with qb queries per block: 1024 bytes of
+    alignment, the query block in whole 128-byte chunks of each row, four
+    64-row chunks with their two mbarriers each, the key buffers and the
+    lists (key_bytes a key: 8 for B3e and B4, 4 for the others) and their
+    counts."""
     row = -(-d * elem_bytes // 128) * 128
     return (1024 + qb * row + 4 * (64 * 128 + 16) + key_bytes * (qb * 64 + qb * k)
             + 4 * qb)
 
 
+#: The tensor-core kernel's register lists hold up to this k (KCAP).
+TC_LIST_K = 16
+
+
 def tc_block_queries(d: int, k: int, elem_bytes: int = 2, key_bytes: int = 4) -> int:
     """The queries per block the tensor-core kernel takes: 128 where they
-    fit shared memory, else 64; 0 where neither fits.  B3e's 64-bit keys at
-    10 < k <= 16 (per-thread register lists of 16) take 64: a 128-query
-    block's 9 warps leave too few registers for them (its lists hold 10)."""
+    fit shared memory, else 64; 0 where neither fits.  64-bit keys (B3e,
+    B4) at 10 < k <= 16 (per-thread register lists of 16) take 64: a
+    128-query block's 9 warps leave too few registers for them (its lists
+    hold 10)."""
     for qb in ((64,) if key_bytes == 8 and 10 < k <= 16 else (128, 64)):
         if tc_smem_bytes(qb, d, k, elem_bytes, key_bytes) <= _SMEM_LIMIT:
             return qb
     return 0
 
 
-#: The CUDA-core kernel of B4 (and of B5 / B7f over an f32 bank),
-#: csrc/float_tile_topk.cu on csrc/float_dot.cuh: queries per block, rows
-#: per sub-tile, and the bytes of the loop's two chunk buffers (8 columns of
-#: 128 queries and 128 rows, rows padded to 132 floats).
+#: The CUDA-core kernel of B4, B5 and B7f over an f32 bank (and of B4 over a
+#: bf16 one the tensor cores cannot hold), csrc/float_tile_topk.cu on
+#: csrc/float_dot.cuh: queries per block, rows per sub-tile, and the bytes
+#: of the loop's two chunk buffers (8 columns of 128 queries and 128 rows,
+#: rows padded to 132 floats).
 CORE_BLOCK_QUERIES = 128
 CORE_SUB_ROWS = 128
 CORE_LOOP_SMEM = 2 * 8 * 132 * 2 * 4
@@ -529,13 +540,25 @@ def float_packed_tile_topk_plain(
                                e.shape[0], k, tile_n, LANE_BITS, q.device)
 
 
+def b4_on_tensor_cores(dtype: torch.dtype, d: int, k: int) -> bool:
+    """Kernel B4's route, by what its operands show.  Over a bf16 bank the
+    tensor-core kernel (64-bit keys) where it takes 128 queries a block, or
+    64 with register lists (k <= TC_LIST_K); elsewhere the CUDA-core kernel:
+    a 64-query block with shared-memory buffers ran slower than it on an
+    H100 (k = 64-128 at d = 384), and some widths fit no plan.  Over an f32
+    bank always the CUDA-core kernel, since the tensor cores would need
+    TF32.  csrc/float_tile_topk.cu states the same rule."""
+    qb = tc_block_queries(d, k, 2, 8)
+    return dtype == torch.bfloat16 and (qb == 128 or (qb == 64 and k <= TC_LIST_K))
+
+
 def float_launch_plan(name, key_bytes, q, e, mask, k, tile_n,
                       super_rows=False) -> Tuple[int, int]:
     """The operand rules of kernel B4 (key_bytes 8), B5 or B7f (4), on
     tensors of any one device: raises ValueError where the kernel would
     refuse them, else returns (tiles, shared-memory bytes of a block).  B5
-    and B7f over a bf16 bank run on the tensor cores; B4 over either bank
-    and B5 / B7f over an f32 one on the CUDA-core kernel, whose shared
+    and B7f over a bf16 bank run on the tensor cores, and so does B4 where
+    `b4_on_tensor_cores`; the others on the CUDA-core kernel, whose shared
     memory does not depend on d."""
     b, d = q.shape
     n = e.shape[0]
@@ -553,6 +576,8 @@ def float_launch_plan(name, key_bytes, q, e, mask, k, tile_n,
     tiles = -(-n // tile_n)
     if key_bytes == 4 and e.dtype == torch.bfloat16:
         smem = tc_smem_bytes(tc_block_queries(d, k) or 64, d, k)
+    elif b4_on_tensor_cores(e.dtype, d, k):
+        smem = tc_smem_bytes(tc_block_queries(d, k, 2, 8), d, k, 2, 8)
     else:
         smem = core_smem_bytes(k, key_bytes)
     if smem > _SMEM_LIMIT or tiles > 65535:
@@ -568,6 +593,8 @@ def _float_launch(name, key_bytes, q, e, mask, k, tile_n, super_rows=False):
     _require_cuda(q, "q")
     tiles, _ = float_launch_plan(name, key_bytes, q, e, mask, k, tile_n, super_rows)
     (b, d), n, dev = q.shape, e.shape[0], q.device
+    if mask.data_ptr() % 4 and e.dtype == torch.bfloat16:
+        mask = mask.clone()  # the tensor cores read the mask bytes in pairs
     out_v = torch.empty((b, tiles, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, tiles, k), dtype=torch.int32, device=dev)
     err = _kernel(name)(
@@ -585,15 +612,38 @@ def float_tile_topk(
     tile_n: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B4 for CUDA tensors, its plain version for CPU tensors (see
-    `float_tile_topk_plain` for the contract)."""
+    `float_tile_topk_plain` for the contract).  `.tc_launches` counts the
+    launches that took the tensor cores (`b4_on_tensor_cores`), as does the
+    recorder's counter `select.b4_tensor_cores`."""
     if q.device.type == "cpu":
         return float_tile_topk_plain(q, e, mask, k, tile_n)
     out = _float_launch("float_tile_topk", 8, q, e, mask, k, tile_n)
     float_tile_topk.launches += 1
+    if b4_on_tensor_cores(e.dtype, q.shape[1], k):
+        float_tile_topk.tc_launches += 1
+        timing.count("select.b4_tensor_cores")
     return out
 
 
 float_tile_topk.launches = 0
+float_tile_topk.tc_launches = 0
+
+
+def float_tile_topk_core(
+    q: torch.Tensor, e: torch.Tensor, mask: torch.Tensor, k: int,
+    tile_n: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B4 on its CUDA-core loop over either bank, whatever
+    `b4_on_tensor_cores` says: the loop that B4 over bf16 leaves where the
+    tensor cores fit, for testing and timing it beside them.  No query path
+    calls it.  CUDA tensors only."""
+    _require_cuda(q, "q")
+    out = _float_launch("float_tile_topk_core", 8, q, e, mask, k, tile_n)
+    float_tile_topk_core.launches += 1
+    return out
+
+
+float_tile_topk_core.launches = 0
 
 
 def float_packed_tile_topk(

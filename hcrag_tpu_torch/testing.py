@@ -17,7 +17,10 @@ that; `tests/test_torch_cuda.py` and `chip_smoke.py` use them on the card.
 
   * B4 (`check_exact_topk`): values within `atol`; an index may differ only
     where the two rows' scores (recomputed in float64) lie within `atol` of
-    each other, a near-tie that rounding can order either way.
+    each other, a near-tie that rounding can order either way.  Over a bf16
+    bank B4 sums on the tensor cores (where `topk_cuda.b4_on_tensor_cores`)
+    within `TC_DOT_ERROR` of the float64 dots, far inside `atol`; on exact
+    dots it equals its plain version bit for bit on either loop.
   * B5 and B7f (`check_packed_topk`): keys equal, except in a tile where a
     row that either side selected has its shifted score within 1e-6 of a
     multiple of the key quantum (B5: 2^-11 above 2, 2^-12 below; B7f over
@@ -159,8 +162,8 @@ class RowLookupEmbedder:
 
 
 NEAR_BOUNDARY = 1e-6
-#: The most the tensor-core dot loop of B5 / B7f may differ from the
-#: float64 dots for `check_packed_topk`'s band to hold.
+#: The most the tensor-core dot loop of B5 / B7f (and of B4 over bf16) may
+#: differ from the float64 dots for `check_packed_topk`'s band to hold.
 TC_DOT_ERROR = NEAR_BOUNDARY
 
 

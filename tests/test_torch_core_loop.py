@@ -1,11 +1,14 @@
 """Host-side rules of kernels B4 and B3e on their H100 loops, on the CPU.
 
-B4 (`float_tile_topk`, and B5 / B7f over an f32 bank) runs the
+B4 (`float_tile_topk`) over an f32 bank, and B5 / B7f over one, run the
 register-tiled CUDA-core loop of csrc/float_dot.cuh: 128 queries a block,
 both operands streamed in 8-column chunks, so its shared memory does not
-depend on d.  B3e (`int8_exact_tile_topk`) runs the int8 tensor-core kernel
-of csrc/tc_tile_topk.cuh with 64-bit keys: its register lists take 128-query
-blocks up to k = 10 and 64-query blocks from 11 to 16.  These tests hold
+depend on d.  B4 over a bf16 bank runs the tensor-core kernel of
+csrc/tc_tile_topk.cuh with 64-bit keys where that takes 128 queries a
+block, or 64 with register lists, and the CUDA-core loop elsewhere.  B3e (`int8_exact_tile_topk`) runs the
+int8 tensor-core kernel with 64-bit keys.  64-bit register lists take
+128-query blocks up to k = 10 and 64-query blocks from 11 to 16.  These
+tests hold
 the wrappers' sizing and operand rules (`float_launch_plan`,
 `int8_launch_plan`, `core_smem_bytes`, `tc_block_queries`,
 `sweep_smem_bytes`) to those layouts; the kernels themselves are held to
@@ -45,13 +48,49 @@ def test_core_smem_fits_every_k(key_bytes):
 @pytest.mark.parametrize("d", [64, 384, 768, 1024, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b4_plan_takes_any_width(d, dtype):
-    """B4's plan over either bank: tiles and the CUDA-core kernel's shared
-    memory, the same at every d."""
+    """B4's plan over either bank: tiles and the shared memory of its
+    kernel.  Over f32 the CUDA-core kernel's, the same at every d; over bf16
+    the tensor-core kernel's with 8-byte keys where that fits, else the
+    CUDA-core kernel's."""
     q, e = torch.zeros(130, d, dtype=dtype), torch.zeros(5000, d, dtype=dtype)
     mask = torch.ones(5000, dtype=torch.bool)
     for k in (1, 10, 128):
         got = tc.float_launch_plan("float_tile_topk", 8, q, e, mask, k, 2048)
-        assert got == (3, tc.core_smem_bytes(k, 8))
+        qb = tc.tc_block_queries(d, k, 2, 8)
+        if dtype == torch.bfloat16 and (qb == 128 or (qb == 64 and k <= 16)):
+            assert tc.b4_on_tensor_cores(dtype, d, k)
+            assert got == (3, tc.tc_smem_bytes(qb, d, k, 2, 8))
+        else:
+            assert not tc.b4_on_tensor_cores(dtype, d, k)
+            assert got == (3, tc.core_smem_bytes(k, 8))
+
+
+# (d, k, queries per tensor-core block with 64-bit keys or 0 where none
+# fits, whether B4 over bf16 takes the tensor cores): kg1m_bf16.batch1k's
+# shape (k = 10: 128-query blocks, register lists); 64-bit register lists
+# of 16 (64-query blocks); shared-memory buffers in 128-query blocks (k = 17
+# to 27 at d = 384); graph3's k = 100 (64-query blocks with buffers, ~167 KB,
+# slower than the CUDA-core loop on an H100); d = 1024 past k = 16 (the
+# same); and widths no plan holds (d = 1024 at k = 128; d = 2048).
+B4_ROUTES = [(384, 10, 128, True), (384, 16, 64, True), (384, 17, 128, True),
+             (384, 27, 128, True), (384, 100, 64, False), (1024, 10, 64, True),
+             (1024, 17, 64, False), (1024, 128, 0, False), (2048, 1, 0, False)]
+
+
+@pytest.mark.parametrize("d,k,qb,on_tc", B4_ROUTES)
+def test_b4_route_by_shape(d, k, qb, on_tc):
+    """B4 over bf16 takes the tensor cores where they hold 128 queries a
+    block, or 64 with register lists; over f32 it never does.  The plan's
+    shared memory is that of the kernel the route runs."""
+    assert tc.tc_block_queries(d, k, 2, 8) == qb
+    assert tc.b4_on_tensor_cores(torch.bfloat16, d, k) == on_tc
+    assert not tc.b4_on_tensor_cores(torch.float32, d, k)
+    q, e = torch.zeros(512, d, dtype=torch.bfloat16), torch.zeros(4100, d, dtype=torch.bfloat16)
+    mask = torch.ones(4100, dtype=torch.bool)
+    _, smem = tc.float_launch_plan("float_tile_topk", 8, q, e, mask, k, 2048)
+    assert smem == (tc.tc_smem_bytes(qb, d, k, 2, 8) if on_tc else tc.core_smem_bytes(k, 8))
+    assert smem <= SMEM
+    assert (tc.tc_smem_bytes(64, d, k, 2, 8) <= SMEM) == (qb > 0)
 
 
 def test_b5_plan_over_f32_takes_the_core_loop():

@@ -725,40 +725,98 @@ def test_large_k_route_on_card_equals_cpu(cuda, mode):
         np.testing.assert_array_equal(getattr(rt, f), getattr(rg, f), err_msg=f)
 
 
-# Kernel B4 on the register-tiled CUDA-core loop (128 queries x 128-row
-# sub-tiles a block, the filtering epilogue), each case over an f32 and a
-# bf16 bank: (b, n, d, k, tile).  Batches of 1, 63, 129, 130 and 1024
-# (ragged query blocks), d of 64 to 1024 (streamed in 8-column chunks),
-# per-tile k of 1 to 128 (k = 128 at 128-row tiles keeps every row),
-# tiles of 64 to 2048 rows (64: half a sub-tile; 192: a sub-tile and a
-# half), ragged bank ends, a tenth of the rows masked.
+# Kernel B4, each case over an f32 and a bf16 bank: (b, n, d, k, tile).
+# Over f32 it runs the register-tiled CUDA-core loop (128 queries x 128-row
+# sub-tiles a block, the filtering epilogue); over bf16 the tensor-core
+# kernel with 64-bit keys (10-key register lists in 128-query blocks up to
+# k = 10, 16-key ones in 64-query blocks up to 16, shared-memory buffers in
+# 128-query blocks past that) where `b4_on_tensor_cores`, else the same
+# CUDA-core loop.  `float_tile_topk_core` runs the CUDA-core loop over bf16
+# at every shape.
+# Batches of 1, 63, 129, 130, 512 and 1024 (ragged query blocks), d of 64
+# to 1024, per-tile k of 1 to 128 (k = 128 at 128-row tiles keeps every
+# row), tiles of 64 to 2048 rows (64: half a sub-tile; 192: a sub-tile and
+# a half), ragged bank ends, a tenth of the rows masked; kg1m_bf16.batch1k's
+# shape (1024 queries, d 384, k 10), k = 24 (buffers in 128-query blocks)
+# and graph3's (512, k 100, which takes the CUDA-core loop over bf16 too, as
+# d = 1024 does past k = 16).
 B4_GRID = [(1, 3000, 64, 1, 64), (63, 5000, 384, 10, 2048), (129, 4100, 768, 16, 1024),
            (1024, 2100, 384, 10, 2048), (129, 3000, 1024, 17, 512),
            (63, 9000, 64, 100, 2048), (130, 2500, 1024, 128, 2048),
-           (129, 3000, 384, 128, 128), (63, 1000, 768, 1, 192)]
+           (129, 3000, 384, 128, 128), (63, 1000, 768, 1, 192),
+           (1024, 4100, 384, 10, 2048), (130, 4100, 384, 24, 2048),
+           (512, 4100, 384, 100, 2048)]
+B4_KERNELS = ["float_tile_topk", "float_tile_topk_core"]
 
 
+def _b4_run(kernel, q, e, mask, k, tile):
+    """One launch of B4 through `kernel`; asserts the route it took from
+    the per-route launch counts."""
+    fn = getattr(topk_cuda, kernel)
+    launches, tc = fn.launches, topk_cuda.float_tile_topk.tc_launches
+    out = fn(q, e, mask, k, tile_n=tile)
+    on_tc = kernel == "float_tile_topk" and topk_cuda.b4_on_tensor_cores(e.dtype, q.shape[1], k)
+    assert fn.launches == launches + 1
+    assert topk_cuda.float_tile_topk.tc_launches == tc + on_tc
+    return out
+
+
+@pytest.mark.parametrize("kernel", B4_KERNELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,d,k,tile", B4_GRID)
-def test_b4_grid_against_plain(cuda, b, n, d, k, tile, dtype):
+def test_b4_grid_against_plain(cuda, b, n, d, k, tile, dtype, kernel):
     from hcrag_tpu_torch.testing import check_exact_topk
 
     q, e, mask = _float_inputs(b, n, d, b + k + d, cuda, dtype)
-    kv, ki = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    kv, ki = _b4_run(kernel, q, e, mask, k, tile)
     pv, pi = topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile)
     torch.cuda.synchronize()
     check_exact_topk(kv, ki, pv, pi, q, e, mask)
 
 
+@pytest.mark.parametrize("kernel", B4_KERNELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,d,k,tile", B4_GRID)
-def test_b4_grid_bit_equal_on_exact_dots(cuda, b, n, d, k, tile, dtype):
+def test_b4_grid_bit_equal_on_exact_dots(cuda, b, n, d, k, tile, dtype, kernel):
     """Multiples of 1/64: every dot is exact in any order, and many tie, so
     the kernel equals its plain version bit for bit, ties to the lowest
     row."""
     q, e, mask = _dyadic_inputs(b, n, d, b + k + d + 1, cuda, dtype)
-    out = topk_cuda.float_tile_topk(q, e, mask, k, tile_n=tile)
+    out = _b4_run(kernel, q, e, mask, k, tile)
     _bit_equal(out, topk_cuda.float_tile_topk_plain(q, e, mask, k, tile_n=tile))
+
+
+def test_b4_route_counts(cuda):
+    """Over bf16 at batch1k's shape B4 takes the tensor cores, at graph3's
+    (k = 100) and at d = 1024, k = 128 the CUDA-core loop; over f32 always
+    the CUDA-core loop.  The recorder counts the tensor-core launches."""
+    from hcrag_tpu_torch.utils import timing
+
+    cases = [(384, 10, torch.bfloat16, 1), (384, 24, torch.bfloat16, 1),
+             (384, 100, torch.bfloat16, 0), (1024, 128, torch.bfloat16, 0),
+             (384, 10, torch.float32, 0)]
+    for d, k, dtype, want in cases:
+        q, e, mask = _float_inputs(64, 4100, d, d + k, cuda, dtype)
+        tc = topk_cuda.float_tile_topk.tc_launches
+        timing.reset()
+        with timing.recording():
+            topk_cuda.float_tile_topk(q, e, mask, k)
+        counted = timing.summary()["counters"].get("select.b4_tensor_cores", 0)
+        assert topk_cuda.float_tile_topk.tc_launches - tc == want, (d, k, dtype)
+        assert counted == want, (d, k, dtype)
+
+
+def test_b4_tensor_cores_take_a_mask_view(cuda):
+    """The tensor-core kernel reads mask bytes in pairs from a 4-byte
+    boundary; a mask that is a view one byte in gives the same answer as
+    its copy."""
+    q, e, mask = _float_inputs(130, 5000, 384, 8, cuda, torch.bfloat16)
+    wide = torch.zeros(5001, dtype=torch.bool, device=cuda)
+    wide[1:] = mask
+    view = wide[1:]
+    assert view.data_ptr() % 4 and topk_cuda.b4_on_tensor_cores(e.dtype, 384, 10)
+    _bit_equal(topk_cuda.float_tile_topk(q, e, view, 10),
+               topk_cuda.float_tile_topk(q, e, mask, 10))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -238,6 +238,9 @@ def test_kernel_labels_and_ptxas_report_read_nvcc_output():
     assert _build.kernel_label(tc) == "tc_tile_topk_kernel<128,16,Int8,PackedKey>"
     assert _build.kernel_label(dots) == "tc_tile_topk_kernel<64,0,Bf16,PackedKey,DOTS>"
     assert _build.kernel_label(exact) == "int8_exact_tile_topk_kernel"
+    b4 = ("_ZN7tc_tile25float_tile_topk_kernel_tcILi128ELi10ENS_4Bf16EN51_GLOBAL__N__155bee95_"
+          "18_float_tile_topk_cu_13a1ec918ExactKeyELb0EEEv14CUtensorMap_stPKhPKfS8_S6_PfPiiii")
+    assert _build.kernel_label(b4) == "float_tile_topk_kernel_tc<128,10,Bf16,ExactKey>"
     log = (f"ptxas info    : Compiling entry function '{tc}' for 'sm_90a'\n"
            f"ptxas info    : Function properties for {tc}\n"
            "    128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
