@@ -6,9 +6,10 @@
 For each seed, one set-up of each configuration (the cells' data, the
 program), then for each named cell a short window at the cell's own load,
 the numbers of the program's answers (the lower readings) and the numbers
-of the control: the reference one precision step lower (`reference.BELOW`)
-put in the program's place, on the same queries (the upper readings).  One
-JSON line per seed and cell.  The benchmark's own runs never run this.
+of the control: the reference one precision step lower (the kind's
+`lowered`) put in the program's place, on the same queries (the upper
+readings).  One JSON line per seed and cell.  The benchmark's own runs
+never run this.
 """
 
 from __future__ import annotations
@@ -21,25 +22,22 @@ import time
 
 import torch
 
-from hcbench import check, data
-from hcbench.loops import LOOPS
-from hcbench.reference import Reference, lowered
+from hcbench.data import generator
 from hcbench.spec import load_cell
-from hcbench.system import System
 
 
 def readings(cells, seed: int, seconds: float, device) -> list:
     """[{seed, workload, program, control}] for cells of one configuration."""
-    cfg = cells[0].config
-    g = data.generator(seed, device)
-    corpus = {k: v.cpu() for k, v in data.make_corpus(cfg, g, device).items()}
-    after_corpus = g.get_state()
-    system = System(cfg, corpus, device)
+    kind, cfg = cells[0].kind, cells[0].config
+    g = generator(seed, device)
+    inputs = {k: v.cpu() for k, v in kind.make_inputs(cfg, g, device).items()}
+    after_inputs = g.get_state()
+    system = kind.System(cfg, inputs, device)
     kept = []
     for cell in cells:
-        g.set_state(after_corpus)  # the queries a run of this cell would draw
-        loop = LOOPS[cell.traffic["loop"]](system, cell.traffic, g, seed, device,
-                                           int(cfg["dim"]))
+        g.set_state(after_inputs)  # the queries a run of this cell would draw
+        loop = kind.LOOPS[cell.traffic["loop"]](system, cell.traffic, g, seed, device,
+                                                int(cfg["dim"]))
         loop.warm_up()
         loop.window(seconds)
         kept.append((cell, loop.kept_batches()))
@@ -48,13 +46,13 @@ def readings(cells, seed: int, seconds: float, device) -> list:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = Reference(cfg, corpus, device)
-    low = Reference(cfg, corpus, device, precision=lowered(cfg["precision"]))
+    ref = kind.Reference(cfg, inputs, device)
+    low = kind.Reference(cfg, inputs, device, precision=kind.lowered(cfg["precision"]))
     out = []
     for cell, batches in kept:
-        program, _ = check.judge(ref, cell.traffic, batches)
-        ctrl = [(q, check.control_outputs(low, cell.traffic, q)) for q, _ in batches]
-        control, _ = check.judge(ref, cell.traffic, ctrl)
+        program, _ = kind.judge(ref, cell.traffic, batches)
+        ctrl = [(q, kind.control_outputs(low, cell.traffic, q)) for q, _ in batches]
+        control, _ = kind.judge(ref, cell.traffic, ctrl)
         out.append(dict(seed=seed, workload=cell.name, program=program, control=control))
     return out
 

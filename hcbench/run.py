@@ -9,7 +9,8 @@ first use) and warms every shape the traffic uses; then the traffic runs
 for `--seconds`.  `--trace 0` reports the cell's end-to-end metrics,
 `--trace 1` its per-layer metrics from a profiled slice of the window.
 Once the window has closed, what the timed path answered is judged
-against the plain reference (`hcbench/check.py`).  The last line of
+against the plain reference of the configuration's kind
+(`hcbench/kinds/<kind>.py`).  The last line of
 standard output is one JSON object (`correct`, `attempted`, `failed`,
 `metrics`, `device`, with `--trace 1` `breakdown`, and last `checks`: each
 number compared with its limit); the checks are also the last lines of
@@ -61,17 +62,15 @@ def trace_slice(seconds: float):
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> Dict:
     """One run of `cell` on `device`; returns the result line's object and
-    the run's side information."""
+    the run's side information.  What the cell feeds, drives and judges is
+    its kind's (`cell.kind`)."""
     import torch
 
-    from hcbench import check, data
-    from hcbench.bounds import select_bound_ms
-    from hcbench.loops import LOOPS
-    from hcbench.reference import Reference
-    from hcbench.system import System
+    from hcbench.check import verdict
+    from hcbench.data import generator
     from hcbench.trace import Tracer
 
-    cfg, tr = cell.config, cell.traffic
+    kind, cfg, tr = cell.kind, cell.config, cell.traffic
     cuda = device.type == "cuda"
     phases, t = {}, time.monotonic()
     phases["start_s"] = t - t_start
@@ -82,15 +81,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         phases[name] = now - t
         t = now
 
-    g = data.generator(seed, device)
-    corpus = {k: v.cpu() for k, v in data.make_corpus(cfg, g, device).items()}
+    g = generator(seed, device)
+    inputs = {k: v.cpu() for k, v in kind.make_inputs(cfg, g, device).items()}
     if cuda:  # the peak below is the program's and its traffic's, not the draw's
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     phase("data_s")
-    system = System(cfg, corpus, device)
+    system = kind.System(cfg, inputs, device)
     phase("program_s")
-    loop = LOOPS[tr["loop"]](system, tr, g, seed, device, int(cfg["dim"]))
+    loop = kind.LOOPS[tr["loop"]](system, tr, g, seed, device, int(cfg["dim"]))
     loop.warm_up()
     tracer = Tracer(device, *trace_slice(seconds)) if trace else None
     if tracer is not None:
@@ -105,10 +104,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     if trace:
         run["trace"] = tracer.summary()
-        run["select_kernels"] = cfg.get("select_kernels")
-        run["select_bound_ms"] = select_bound_ms(
-            int(tr["batch"]), int(cfg["rows"]), int(cfg["dim"]), cfg["select_bank"],
-            int(tr["top_k"]))
+        run.update(kind.trace_info(cfg, tr))
     batches = loop.kept_batches()
     loop.close()
     del loop, system
@@ -118,10 +114,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         torch.cuda.empty_cache()
 
     t_ref = time.monotonic()
-    numbers, info = check.judge(Reference(cfg, corpus, device), tr, batches)
+    numbers, info = kind.judge(kind.Reference(cfg, inputs, device), tr, batches)
     info["reference_s"] = time.monotonic() - t_ref
     info["setup_phases"] = phases
-    correct, rows = check.verdict(numbers, cell.limits)
+    correct, rows = verdict(numbers, cell.limits)
 
     metrics = {}
     for m in cell.per_layer if trace else cell.end_to_end:
@@ -140,8 +136,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
                                "idle_gaps": summary["idle_gaps"]}
         info.update(trace_reduce_s=summary["reduce_s"], traced_steps=summary["steps"])
     info["steps"] = run["steps"]
-    if "queries" in info:
-        info["full_subgraph_share"] = info.pop("full_subgraphs") / info.pop("queries")
+    kind.finish_info(info)
     result["checks"] = {r["name"]: {"value": r["value"], "limit": r["limit"]} for r in rows}
     return {"result": result, "checks": rows, "info": info}
 
@@ -156,8 +151,8 @@ def main(argv=None) -> int:
 
     from hcbench.spec import load_cell
 
-    cell = load_cell(args.workload)
     cache_dirs(ROOT)
+    cell = load_cell(args.workload)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:

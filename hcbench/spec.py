@@ -4,9 +4,13 @@ A cell `<config>.<traffic>` is one entry of `workloads`.  Everything that
 belongs to it is found by name, so a later change adds a configuration, a
 traffic mix, a metric or a cell's limits by adding files and entries:
 
-  * `hcbench/configs/<config>.json`  the deployment (the `file` of its entry);
-  * `hcbench/traffic/<traffic>.json` the traffic mix, read by the loop its
-    `loop` key names (`hcbench/loops.py`);
+  * `hcbench/configs/<config>.json`  the deployment (the `file` of its entry),
+    whose `kind` key names its kind;
+  * `hcbench/kinds/<kind>.py`        the kind: the data, the system, the
+    loops, the reference, the judge and the traffic's check, by the names
+    `hcbench/kinds/__init__.py` lists;
+  * `hcbench/traffic/<traffic>.json` the traffic mix, read by the kind's loop
+    its `loop` key names;
   * `hcbench/limits/<cell>.json`     the limit of each number compared;
   * `hcbench/metrics/<metric>.py`    one reader per metric, end to end or
     per layer: `read(run) -> float | None`.
@@ -18,10 +22,14 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "hcbench"
+#: What a kind module defines (`hcbench/kinds/__init__.py`).
+KIND_NAMES = ("make_inputs", "System", "LOOPS", "Reference", "lowered", "judge",
+              "control_outputs", "work_problem", "trace_info", "finish_info")
 
 
 @dataclasses.dataclass
@@ -36,6 +44,7 @@ class Cell:
     end_to_end: List[Dict]  # the end-to-end metrics this cell reports
     per_layer: List[Dict]  # the per-layer metrics this cell reports
     root: Path
+    kind: ModuleType  # hcbench/kinds/<config's kind>.py
 
     def reader(self, metric: str) -> Callable[[Dict], Optional[float]]:
         return metric_reader(metric, self.root)
@@ -78,20 +87,39 @@ def load_cell(name: str, root: Path = ROOT, bench: Optional[Dict] = None,
     cfg_entry = next((c for c in bench["configs"] if c["name"] == entry["config"]), None)
     cfg_file = cfg_entry["file"] if cfg_entry else f"{PKG}/configs/{entry['config']}.json"
     config = _read_json(root / cfg_file)
+    kind = load_kind(config, root / cfg_file, root)
     traffic = _read_json(root / PKG / "traffic" / f"{entry['traffic']}.json")
     limits = _read_json(root / PKG / "limits" / f"{name}.json")
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     e2e_names = [m["name"] for m in e2e]
     per_layer = [m for m in bench["per_layer"] if _applies(m, name, e2e_names)]
-    problem = fixed_work_problem(traffic, config)
+    problem = kind.work_problem(traffic, config)
     if problem:
         raise ValueError(f"traffic {entry['traffic']!r} refused: {problem}")
     return Cell(name, int(entry["chips"]), entry["config"], config, entry["traffic"],
-                traffic, limits, e2e, per_layer, root)
+                traffic, limits, e2e, per_layer, root, kind)
+
+
+def load_kind(config: Dict, config_path: Path, root: Path = ROOT) -> ModuleType:
+    """The module `hcbench/kinds/<kind>.py` that `config` (read from
+    `config_path`) names by its `kind` key, loaded by its path."""
+    if "kind" not in config:
+        raise ValueError(f"{config_path} names no kind: give it a \"kind\" key, the name "
+                         f"of a module in {Path(root) / PKG / 'kinds'}")
+    path = Path(root) / PKG / "kinds" / f"{config['kind']}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"{config_path} names the kind {config['kind']!r}, "
+                                f"which has no module at {path}")
+    module = _load(path, f"hcbench_kind_{config['kind']}")
+    missing = [n for n in KIND_NAMES if not hasattr(module, n)]
+    if missing:
+        raise AttributeError(f"the kind module {path} lacks {', '.join(missing)}")
+    return module
 
 
 def fixed_work_problem(traffic: Dict, config: Dict) -> Optional[str]:
-    """Why a traffic's work could depend on the seed, or None.
+    """Why a traffic's work could depend on the seed, or None: the
+    retrieval kind's `work_problem`.
 
     The expansion stops after the hop at which every query of the batch
     holds `max_expanded` nodes.  After h hops a query holds at most
@@ -115,7 +143,11 @@ def metric_reader(metric: str, root: Path = ROOT) -> Callable[[Dict], Optional[f
     path = Path(root) / PKG / "metrics" / f"{metric}.py"
     if not path.is_file():
         raise FileNotFoundError(f"metric {metric!r} has no reader at {path}")
-    spec = importlib.util.spec_from_file_location(f"hcbench_metric_{metric}", path)
+    return _load(path, f"hcbench_metric_{metric}").read
+
+
+def _load(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
