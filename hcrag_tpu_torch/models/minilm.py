@@ -4,9 +4,11 @@ Counterpart of `hcrag_tpu/models/minilm.py`: `MiniLMConfig`,
 `TransformerLayer` and `MiniLMEncoder` as `torch.nn.Module`s, the
 `SimpleTokenizer` and the `WordPieceTokenizer` (native C++ where it
 builds, `native/wordpiece.cpp`, else Python), the
-embedder (`MiniLMEmbedder`: `encode`, `load_params`, `save_params`) and
-`load_distilled_embedder`, which reads the distilled weights committed under
-`tools/minilm_distilled*`.
+embedder (`MiniLMEmbedder`: `encode_device`, `encode`, `load_params`,
+`save_params`, `load_bert_state`) and `load_distilled_embedder`, which
+reads the distilled weights committed under `tools/minilm_distilled*`.
+`models/minilm_plain.py` is the published forward in plain torch, the
+reference of the tests.
 
 The forward pass follows the Flax module's arithmetic in float32: token +
 position + segment embeddings, LayerNorm (eps 1e-12; the mean of squares
@@ -20,6 +22,11 @@ runs all of it outside any Pallas kernel, so the products here are
 `nn.Linear` and `torch.matmul` (attention is written out: no fused-attention
 call), and the CPU and the card run the same arithmetic.  Products run in
 full float32: the forward refuses TF32 (`check_exact_matmul`).
+
+`load_bert_state` takes a state dict under the published BertModel names
+(`embeddings.word_embeddings.weight`, `encoder.layer.{i}.attention.self.
+query.weight`, ..., the names of all-MiniLM-L6-v2's checkpoint), and
+`bert_state` gives the module's weights under those names.
 
 `load_params` / `save_params` read and write the Flax parameter tree's
 `.npz` (flattened "/"-joined names, `params/TransformerLayer_0/...`), so a
@@ -50,6 +57,7 @@ from torch import nn
 from hcrag_tpu_torch.device import resolve_device
 from hcrag_tpu_torch.models.flax_init import lecun_normal_
 from hcrag_tpu_torch.ops.quantize import check_exact_matmul
+from hcrag_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass
@@ -240,6 +248,59 @@ def flax_from_state(state: Dict[str, torch.Tensor], cfg: MiniLMConfig) -> Dict[s
     return {"params/" + k: np.ascontiguousarray(v) for k, v in flat.items()}
 
 
+def _bert_names(num_layers: int) -> Dict[str, str]:
+    """{published BertModel name: the module's state name}."""
+    names = {
+        "embeddings.word_embeddings.weight": "tok.weight",
+        "embeddings.position_embeddings.weight": "pos.weight",
+        "embeddings.token_type_embeddings.weight": "seg.weight",
+        "embeddings.LayerNorm.weight": "norm.scale",
+        "embeddings.LayerNorm.bias": "norm.bias",
+    }
+    linears = {"attention.self.query": "query", "attention.self.key": "key",
+               "attention.self.value": "value", "attention.output.dense": "out",
+               "intermediate.dense": "dense_in", "output.dense": "dense_out"}
+    norms = {"attention.output.LayerNorm": "attn_norm", "output.LayerNorm": "ffn_norm"}
+    for i in range(num_layers):
+        src, dst = f"encoder.layer.{i}.", f"layers.{i}."
+        for theirs, mine in linears.items():
+            names[f"{src}{theirs}.weight"] = f"{dst}{mine}.weight"
+            names[f"{src}{theirs}.bias"] = f"{dst}{mine}.bias"
+        for theirs, mine in norms.items():
+            names[f"{src}{theirs}.weight"] = f"{dst}{mine}.scale"
+            names[f"{src}{theirs}.bias"] = f"{dst}{mine}.bias"
+    return names
+
+
+#: Published names the encoder has no use for: the pooler (sentence
+#: embeddings pool by the mean) and the position ids buffer.
+_BERT_UNUSED = re.compile(r"pooler\..*|embeddings\.position_ids")
+
+
+def bert_to_state(state, cfg: MiniLMConfig) -> Dict[str, torch.Tensor]:
+    """The module's state dict from tensors (or arrays) under the published
+    BertModel names, with or without a leading "bert."; a Linear weight is
+    [out, in] in both.  Raises on a name it does not know."""
+    names = _bert_names(cfg.num_layers)
+    out = {}
+    for key, value in state.items():
+        key = key[len("bert."):] if key.startswith("bert.") else key
+        if _BERT_UNUSED.fullmatch(key):
+            continue
+        if key not in names:
+            raise KeyError(f"{key!r} is no BertModel weight of a {cfg.num_layers}-layer encoder")
+        out[names[key]] = torch.as_tensor(value, dtype=torch.float32)
+    return out
+
+
+def bert_state(model: MiniLMEncoder) -> Dict[str, torch.Tensor]:
+    """The module's weights under the published BertModel names: the
+    inverse of `bert_to_state`."""
+    own = model.state_dict()
+    return {theirs: own[mine].detach().clone()
+            for theirs, mine in _bert_names(model.cfg.num_layers).items()}
+
+
 # ---------------------------------------------------------------------------
 # Tokenizers
 # ---------------------------------------------------------------------------
@@ -404,15 +465,42 @@ class MiniLMEmbedder:
     def save_params(self, npz_path: str) -> None:
         np.savez(npz_path, **state_to_flax(self.model))
 
+    def load_bert_state(self, state) -> None:
+        """Load weights named as the published BertModel's state dict
+        (`bert_to_state`): an all-MiniLM-L6-v2 checkpoint's tensors."""
+        self.model.load_state_dict(bert_to_state(state, self.cfg))
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting: on CUDA staged in
+        pinned memory, whose block the caching host allocator reuses once
+        the copy has run."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def encode_device(self, texts: Sequence[str], max_len: int = 0) -> torch.Tensor:
+        """Unit embeddings [B, H] f32 of `texts` on the embedder's device,
+        without waiting for the device: the host tokenizes and uploads ids
+        and mask (span `engine.tokenize`; counters `encode.tokens`, the
+        real tokens, and `encode.padded_tokens`, B x L, from the host
+        mask), then the forward is issued (span `engine.encode`).
+        `max_len` (optional) caps the padded length: short query batches at
+        64 cut the attention work, with the same embeddings for texts that
+        fit."""
+        with timing.span("engine.tokenize") as span:
+            ids, mask = self.tokenizer.encode_batch(list(texts), max_len=max_len)
+            ids_d, mask_d = self._upload(ids), self._upload(mask)
+            if span is not None:
+                timing.count("encode.tokens", int(mask.sum()))
+                timing.count("encode.padded_tokens", mask.size)
+        with timing.span("engine.encode"), torch.no_grad():
+            return self.model(ids_d, mask_d)
+
     def encode(self, texts: Sequence[str], max_len: int = 0) -> np.ndarray:
-        """Embeddings [B, H] f32 of `texts`.  `max_len` (optional) caps
-        the padded length: short query batches at 64 cut the attention
-        work, with the same embeddings for texts that fit."""
-        ids, mask = self.tokenizer.encode_batch(list(texts), max_len=max_len)
-        with torch.no_grad():
-            out = self.model(torch.from_numpy(ids).to(self.device, torch.int64),
-                             torch.from_numpy(mask).to(self.device))
-        return out.cpu().numpy()
+        """Embeddings [B, H] f32 of `texts` on the host: `encode_device`,
+        then a copy."""
+        return self.encode_device(texts, max_len).cpu().numpy()
 
 
 def load_distilled_embedder(

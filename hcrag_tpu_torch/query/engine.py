@@ -30,17 +30,21 @@ priority, weighted reduction); the ELL graph expansion to the requested
 depth, its second and later hops over the ANNOTATION-only table
 (`ops/expand.expand_batch_early_exit`); the scoring of the expanded nodes
 and the 0.7/0.3 blend of relevance and similarity.  `retrieve_batch_device`
-runs the selection alone; `find_similar_content`, `process_query` (with the
-encoder confidence), `search_by_category`, `suggest_queries`,
-`query_similar_products` and `hybrid_search` are the reference-shaped host
-API over the step.  `refresh_index` uploads the index again after
-`DenseIndex.append`; `attach_device_encoder` makes text queries run the
-MiniLM encoder on the engine's device.
+runs the selection alone; `query_text_batch_device` runs the step on a batch
+of texts, encoded on the device by the attached encoder inside the step;
+`find_similar_content`, `process_query` (with the encoder confidence),
+`search_by_category`, `suggest_queries`, `query_similar_products` and
+`hybrid_search` are the reference-shaped host API over the step.
+`refresh_index` uploads the index again after `DenseIndex.append`;
+`attach_device_encoder` makes text queries run the MiniLM encoder on the
+engine's device.
 
 Under a profiler, or inside `utils.timing.recording()`, the step records
 its spans (`engine.step`, `engine.select`, `engine.rescore`,
-`engine.metrics`, `engine.expand`, `engine.score_expanded`) and the
-expansion's counters (`utils/timing.py`).
+`engine.metrics`, `engine.expand`, `engine.score_expanded`; for texts
+`engine.tokenize` and `engine.encode` with the counters `encode.tokens` and
+`encode.padded_tokens`, `models/minilm.py`) and the expansion's counters
+(`utils/timing.py`).
 
 The selections are the CUDA kernels of `ops/topk_cuda.py`.  Past 128
 candidates (top_k or the rescore's oversample), which the kernels' per-tile
@@ -144,6 +148,11 @@ _GRAPH_LABEL_TO_TYPE = {
 class QueryBatchResult:
     """Outputs of a query batch as host arrays (all [B, ...])."""
 
+    NAMES = (
+        "top_scores", "top_indices", "relevance", "combined",
+        "expanded_nodes", "expanded_counts", "expanded_relevance",
+    )
+
     top_scores: np.ndarray  # [B, k] cosine similarity
     top_indices: np.ndarray  # [B, k] index rows
     relevance: np.ndarray  # [B, k] relevance scores of retrieved rows
@@ -152,6 +161,18 @@ class QueryBatchResult:
     expanded_counts: np.ndarray  # [B]
     expanded_relevance: np.ndarray  # [B, max_expanded]
     rerank_scores: Optional[np.ndarray] = None
+
+
+class _TextBatch:
+    """Texts whose queries the step takes from `encoder.encode_device`,
+    called inside the step's span (`query_text_batch_device`); `emb` holds
+    the embeddings once encoded."""
+
+    __slots__ = ("encoder", "texts", "max_len", "emb")
+
+    def __init__(self, encoder, texts: Sequence[str], max_len: int):
+        self.encoder, self.texts, self.max_len = encoder, texts, max_len
+        self.emb: Optional[torch.Tensor] = None
 
 
 def exact_rescore(
@@ -320,10 +341,11 @@ class QueryEngine:
 
     def attach_device_encoder(self, minilm_embedder) -> None:
         """Encode text queries with this embedder (`models/minilm.py`'s
-        `MiniLMEmbedder`, on the engine's device): `process_query`,
-        `search_by_category`, `hybrid_search` and `create_query_input` then
-        tokenize on the host and run the encoder's forward pass on the
-        card."""
+        `MiniLMEmbedder`, on the engine's device): `query_text_batch_device`,
+        and through it `process_query`, `search_by_category` and
+        `hybrid_search`, then tokenize on the host and run the encoder's
+        forward pass on the card inside the step; `create_query_input`
+        takes its vector from the same forward."""
         self._embedder = minilm_embedder
 
     # ------------------------------------------------------------------
@@ -761,9 +783,15 @@ class QueryEngine:
     # ------------------------------------------------------------------
     def _query_tensor(self, query_embs) -> torch.Tensor:
         """[B, D] f32 queries on the device: a 2-D tensor is taken as
-        already normalized; anything else is L2-normalized on the host."""
+        already normalized, as are a `_TextBatch`'s embeddings (unit
+        length), encoded here; anything else is L2-normalized on the
+        host."""
         if isinstance(query_embs, torch.Tensor) and query_embs.ndim == 2:
             return query_embs.to(device=self.device, dtype=torch.float32)
+        if isinstance(query_embs, _TextBatch):
+            query_embs.emb = query_embs.encoder.encode_device(
+                query_embs.texts, query_embs.max_len)
+            return query_embs.emb.to(device=self.device, dtype=torch.float32)
         qh = np.asarray(query_embs, dtype=np.float32)
         if qh.ndim == 1:
             qh = qh[None, :]
@@ -856,20 +884,53 @@ class QueryEngine:
                 self._bank(),
             )
 
+    def query_text_batch_device(
+        self, texts: Sequence[str], *, max_len: int = 0, **kwargs
+    ) -> Tuple[torch.Tensor, ...]:
+        """The step of `query_batch_device` (the same keyword arguments) on
+        a batch of texts, encoded by the attached device encoder
+        (`attach_device_encoder`: a `MiniLMEmbedder`) inside the step:
+        tokenized on the host, the ids uploaded and the forward issued
+        without waiting, its unit embeddings taken as the queries with no
+        host round trip.  `max_len` caps the padded length (0: the
+        tokenizer's own).  Returns the step's seven outputs and then the
+        query embeddings [B, D] f32, on the device, without waiting for
+        it."""
+        encoder = self.embedder
+        if not hasattr(encoder, "encode_device"):
+            raise TypeError(
+                f"query_text_batch_device needs a device encoder (a MiniLMEmbedder, "
+                f"attach_device_encoder); the engine's embedder is a "
+                f"{type(encoder).__name__}"
+            )
+        batch = _TextBatch(encoder, texts, max_len)
+        out = self.query_batch_device(batch, **kwargs)
+        return (*out, batch.emb)
+
+    def _text_query(self, text: str, **kwargs) -> Tuple[QueryBatchResult, np.ndarray]:
+        """One text's step on the host and its embedding [D]: through
+        `query_text_batch_device` where the embedder encodes on the device,
+        else the embedder's host vector through `query_batch`."""
+        if hasattr(self.embedder, "encode_device"):
+            *out, emb = self.query_text_batch_device([text], **kwargs)
+            return self._host_result(out), emb[0].cpu().numpy()
+        emb = np.asarray(self.embedder.encode([text])[0])
+        return self.query_batch(emb, **kwargs), emb
+
+    @staticmethod
+    def _host_result(out) -> QueryBatchResult:
+        """The step's outputs copied to host arrays."""
+        return QueryBatchResult(
+            **{n: v.cpu().numpy() for n, v in zip(QueryBatchResult.NAMES, out)}
+        )
+
     def query_batch(
         self, query_embs, *, rerank: bool = False, **kwargs
     ) -> QueryBatchResult:
         """`query_batch_device`, with the outputs copied to host arrays.
         `rerank=True` reorders each query's top-k by the attached re-ranker
         (`set_reranker`) as a last host stage."""
-        out = self.query_batch_device(query_embs, **kwargs)
-        names = (
-            "top_scores", "top_indices", "relevance", "combined",
-            "expanded_nodes", "expanded_counts", "expanded_relevance",
-        )
-        res = QueryBatchResult(
-            **{n: v.cpu().numpy() for n, v in zip(names, out)}
-        )
+        res = self._host_result(self.query_batch_device(query_embs, **kwargs))
         if rerank:
             res = self.rerank_result(
                 res,
@@ -925,7 +986,11 @@ class QueryEngine:
     ) -> List[Dict]:
         """The top_k rows of one query embedding with cosine at or above
         the threshold, as {content, metadata, similarity_score} dicts."""
-        res = self.query_batch(query_embedding, top_k=top_k)
+        return self._similar_rows(
+            self.query_batch(query_embedding, top_k=top_k), similarity_threshold)
+
+    def _similar_rows(self, res: QueryBatchResult, similarity_threshold: float) -> List[Dict]:
+        """`find_similar_content`'s dicts of the first query of `res`."""
         results = []
         for score, idx in zip(res.top_scores[0], res.top_indices[0]):
             if score >= similarity_threshold:
@@ -962,12 +1027,8 @@ class QueryEngine:
             except Exception:
                 parsed = {"search_text": query}
         search_text = parsed.get("search_text", query)
-        query_embedding = np.asarray(self.embedder.encode([search_text])[0])
-        results = self.find_similar_content(
-            query_embedding,
-            top_k=top_k,
-            similarity_threshold=similarity_threshold,
-        )
+        res, query_embedding = self._text_query(search_text, top_k=top_k)
+        results = self._similar_rows(res, similarity_threshold)
         avg = (
             float(np.mean([r["similarity_score"] for r in results]))
             if results
@@ -1008,8 +1069,7 @@ class QueryEngine:
         match the filter."""
         if category_filter and not self.index.type_mask(category_filter).any():
             return {"results": [], "summary": "No items match the filter criteria"}
-        q_emb = np.asarray(self.embedder.encode([query])[0])
-        res = self.query_batch(q_emb, top_k=top_k, category_filter=category_filter)
+        res, _ = self._text_query(query, top_k=top_k, category_filter=category_filter)
         # Filtered rows come back at -1e30 and packed fillers with index -1:
         # keep only true matches, ranked over the returned list.
         mask = (
@@ -1148,8 +1208,7 @@ class QueryEngine:
         and the row text's first 100 characters.  Rows without an entity id,
         or (with a graph) without a product node, are skipped; without a
         graph the entity id is the name."""
-        q_emb = np.asarray(self.embedder.encode([search_term])[0])
-        res = self.query_batch(q_emb, top_k=limit * 2)
+        res, _ = self._text_query(search_term, top_k=limit * 2)
         items: List[Dict] = []
         same_category = edge_type_id("SAME_CATEGORY")
         for score, row in zip(res.top_scores[0], res.top_indices[0]):

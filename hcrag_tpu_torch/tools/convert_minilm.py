@@ -6,7 +6,8 @@
 Counterpart of `tools/convert_minilm.py`: it maps a HuggingFace BERT
 checkpoint (`model.safetensors` where the safetensors package imports, else
 `pytorch_model.bin`) onto the Flax tree's flattened names, array for array
-as the JAX tool does, and writes the `.npz` that `MiniLMEmbedder.load_params`
+as the JAX tool does (through `models/minilm.py`'s `bert_to_state` and
+`flax_from_state`), and writes the `.npz` that `MiniLMEmbedder.load_params`
 of either package reads.  Then it loads the file into the port's encoder on
 the device (CUDA unless `--device`) and checks one forward.  Nothing is
 downloaded: the weights must already be on disk.
@@ -57,42 +58,15 @@ def load_hf_state_dict(model_dir: str) -> dict:
 
 
 def convert(state: dict, num_layers: int = 6, num_heads: int = 12) -> dict:
-    """HF BERT state dict -> flat '/'-joined Flax parameter names."""
-    def strip(k):
-        return k[len("bert."):] if k.startswith("bert.") else k
+    """HF BERT state dict -> flat '/'-joined Flax parameter names: the
+    published names onto the encoder's (`minilm.bert_to_state`), then the
+    Flax tree's (`minilm.flax_from_state`)."""
+    from hcrag_tpu_torch.models.minilm import MiniLMConfig, bert_to_state, flax_from_state
 
-    state = {strip(k): np.asarray(v) for k, v in state.items()}
-    d = state["embeddings.word_embeddings.weight"].shape[1]
-    dh = d // num_heads
-    out = {
-        "params/Embed_0/embedding": state["embeddings.word_embeddings.weight"],
-        "params/Embed_1/embedding": state["embeddings.position_embeddings.weight"],
-        "params/Embed_2/embedding": state["embeddings.token_type_embeddings.weight"],
-        "params/LayerNorm_0/scale": state["embeddings.LayerNorm.weight"],
-        "params/LayerNorm_0/bias": state["embeddings.LayerNorm.bias"],
-    }
-    for i in range(num_layers):
-        hf = f"encoder.layer.{i}"
-        fx = f"params/TransformerLayer_{i}"
-        attn = f"{fx}/MultiHeadDotProductAttention_0"
-        for name in ("query", "key", "value"):
-            w = state[f"{hf}.attention.self.{name}.weight"]  # [D, D] (out, in)
-            b = state[f"{hf}.attention.self.{name}.bias"]
-            out[f"{attn}/{name}/kernel"] = w.T.reshape(d, num_heads, dh)
-            out[f"{attn}/{name}/bias"] = b.reshape(num_heads, dh)
-        wo = state[f"{hf}.attention.output.dense.weight"]  # [D, D]
-        bo = state[f"{hf}.attention.output.dense.bias"]
-        out[f"{attn}/out/kernel"] = wo.T.reshape(num_heads, dh, d)
-        out[f"{attn}/out/bias"] = bo
-        out[f"{fx}/LayerNorm_0/scale"] = state[f"{hf}.attention.output.LayerNorm.weight"]
-        out[f"{fx}/LayerNorm_0/bias"] = state[f"{hf}.attention.output.LayerNorm.bias"]
-        out[f"{fx}/Dense_0/kernel"] = state[f"{hf}.intermediate.dense.weight"].T
-        out[f"{fx}/Dense_0/bias"] = state[f"{hf}.intermediate.dense.bias"]
-        out[f"{fx}/Dense_1/kernel"] = state[f"{hf}.output.dense.weight"].T
-        out[f"{fx}/Dense_1/bias"] = state[f"{hf}.output.dense.bias"]
-        out[f"{fx}/LayerNorm_1/scale"] = state[f"{hf}.output.LayerNorm.weight"]
-        out[f"{fx}/LayerNorm_1/bias"] = state[f"{hf}.output.LayerNorm.bias"]
-    return out
+    word = "embeddings.word_embeddings.weight"
+    hidden = np.asarray(state[word] if word in state else state["bert." + word]).shape[1]
+    cfg = MiniLMConfig(hidden_size=hidden, num_layers=num_layers, num_heads=num_heads)
+    return flax_from_state(bert_to_state(state, cfg), cfg)
 
 
 def num_layers_of(state: dict) -> int:
